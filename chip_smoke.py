@@ -23,7 +23,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
  5. timing, on the inputs of the last streamed frame: the kernel's device
     time and its time per call with the host's launch overhead; the plain
     version's time per call;
- 6. the ``kernels`` line, then the last line
+ 6. adaptation step: the online adaptation step of
+    ``cfg/adapt_cityscapes_kitti_360.yaml`` at full width on the phase-4
+    modules (frozen ResNet-101 and instance head; live ResNet-18 pose net,
+    depth, pose and semantic heads; semantic teacher EMA 0.99) with the
+    published batch: target triplet 1x3x384x1408, 2 target-replay
+    triplets, 2 source triplets at 512x1024 with labels, 2 composed
+    cut-mixup samples at 512x1024, eval GT. One warm-up step, then 5 timed
+    steps; every loss must be finite, frozen parameters bit-unchanged,
+    live ones moved, the semantic teacher equal to the EMA formula
+    recomputed here, the depth and pose teachers equal to the student, the
+    grouping kernel launched once per step, the depth metrics finite and
+    the confusion matrix summing to H*W. Prints the step latency, steps/s
+    and peak memory. Then one step at 64x192 (target) and 64x128 (source)
+    from the same weights, batch and automask noise on the card and on the
+    CPU, whose losses must agree;
+ 7. the ``kernels`` line, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Random weights from the JAX package's initialization scheme let the
@@ -64,8 +79,21 @@ FP32_OPS_PER_S = 67e12
 # Card against CPU on one input: cuDNN may run float32 3x3 convolutions
 # through Winograd or FFT algorithms, whose rounding error is larger than
 # a direct sum's; the 240-channel GUDA conv then moves the semantic
-# probabilities by about 1e-4 of their maximum (seen on an H100).
+# probabilities by about 1e-4 of their maximum (seen on an H100). The
+# adaptation step's losses are means over such outputs and are held to
+# the same relative bound.
 REL_TOL = 1e-3
+# Adaptation step (phase 6): cfg/adapt_cityscapes_kitti_360.yaml.
+SOURCE_HEIGHT, SOURCE_WIDTH = 512, 1024
+NUM_SOURCE = NUM_REPLAY = NUM_MIXUP = 2
+ADAPT_STEPS = 5
+# Pinhole intrinsics [fx, fy, cx, cy]: KITTI-360's rectified perspective
+# camera 00 at 1408x376 and a Cityscapes camera at 2048x1024, scaled to
+# the feed sizes.
+KITTI_360_CAMERA = (552.554261, 552.554261 * 384 / 376, 682.049453,
+                    238.769549 * 384 / 376)
+CITYSCAPES_CAMERA = (2262.52 / 2, 2265.3017905988554 / 2, 1096.98 / 2,
+                     513.137 / 2)
 
 
 def phase(name):
@@ -200,6 +228,136 @@ def check_outputs(torch, result, batch, height, width):
     assert bool(((depth >= 0.1 - 1e-4) & (depth <= 100.0 + 1e-3)).all())
     sums = result["semantic_soft"].sum(-1)
     assert bool(torch.allclose(sums, torch.ones_like(sums), atol=1e-4))
+
+
+def adapt_config(target_size, source_size):
+    """The slice config with cfg/adapt_cityscapes_kitti_360.yaml's adapt
+    section set in code."""
+    cfg = slice_config()
+    cfg.dataset.feed_img_size = list(target_size)
+    flags = cfg.adapt.model
+    flags.backbone_po_depth = False
+    flags.backbone_pose_sflow = flags.depth = flags.pose = True
+    flags.sflow = False
+    flags.semantic = True
+    flags.instance = False
+    cfg.adapt.ema.alpha = 0.99
+    cfg.adapt.ema.semantic = True
+    cfg.adapt.ema.instance = False
+    cfg.adapt.source_dataset.feed_img_size = list(source_size)
+    cfg.adapt.replay_sampler.nof_source_samples = NUM_SOURCE
+    cfg.adapt.replay_sampler.nof_target_samples = NUM_REPLAY
+    cfg.adapt.mixup.general.mixup_strategies = ["cut_mixup", "cut_mixup"]
+    cfg.adapt.mixup.general.nof_samples = NUM_MIXUP
+    cfg.train.nof_adaptation_steps = 1
+    return cfg
+
+
+def adapt_modules(cfg):
+    """(frozen, EMA-filtered) module names from the adapt flags, as
+    scripts/adapt.py:124-145 derives them."""
+    flags = cfg.adapt.model
+    frozen = [name for name, live in (
+        ("backbone_po_depth", flags.backbone_po_depth),
+        ("backbone_pose_sflow", flags.backbone_pose_sflow),
+        ("depth_head", flags.depth), ("pose_head", flags.pose),
+        ("semantic_head", flags.semantic),
+        ("instance_head", flags.instance)) if not live]
+    ema = ["semantic_head"] if cfg.adapt.ema.semantic else []
+    return tuple(frozen), tuple(ema)
+
+
+def adapt_batch(rng, target_size, source_size):
+    """One step's batch in the step's layout (uint8 frames, NHWC)."""
+    import numpy as np
+    (ht, wt), (hs, ws) = target_size, source_size
+
+    def frames(n, h, w):
+        return rng.integers(0, 256, (n, 3, h, w, 3), dtype=np.uint8)
+
+    def camera(n, intrinsics):
+        return np.tile(np.asarray([intrinsics], np.float32), (n, 1))
+
+    return {
+        "target": {"frames": frames(1, ht, wt),
+                   "camera": camera(1, KITTI_360_CAMERA)},
+        "target_replay": {"frames": frames(NUM_REPLAY, ht, wt),
+                          "camera": camera(NUM_REPLAY, KITTI_360_CAMERA)},
+        "source": {
+            "frames": frames(NUM_SOURCE, hs, ws),
+            "camera": camera(NUM_SOURCE, CITYSCAPES_CAMERA),
+            "semantic": rng.integers(0, NUM_CLASSES, (NUM_SOURCE, hs, ws),
+                                     dtype=np.int32),
+            "semantic_weights": rng.uniform(
+                1.0, 3.0, (NUM_SOURCE, hs, ws)).astype(np.float32),
+            "center": rng.uniform(0, 1, (NUM_SOURCE, hs, ws, 1)).astype(
+                np.float32),
+            "offset": rng.normal(0, 20, (NUM_SOURCE, hs, ws, 2)).astype(
+                np.float32),
+        },
+        "mixup": {
+            "rgb": rng.integers(0, 256, (NUM_MIXUP, hs, ws, 3),
+                                dtype=np.uint8),
+            "semantic": rng.integers(0, NUM_CLASSES, (NUM_MIXUP, hs, ws),
+                                     dtype=np.int32),
+        },
+        "eval_gt": {
+            "semantic": rng.integers(0, NUM_CLASSES, (1, ht, wt),
+                                     dtype=np.int32),
+            "depth_gt": rng.uniform(1.0, 80.0, (1, ht, wt)).astype(
+                np.float32),
+        },
+    }
+
+
+def build_adapt(torch, modules, cfg, device):
+    """(AdaptState on ``device``, the step) for ``modules``."""
+    from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    from codeps_torch.tasks.state import make_adapt_state
+    frozen, ema = adapt_modules(cfg)
+    state = make_adapt_state(modules, cfg.train.optimizer.learning_rate,
+                             ema_modules=ema, frozen_modules=frozen,
+                             ema_alpha=cfg.adapt.ema.alpha, seed=SEED,
+                             device=device)
+    step = make_adapt_step(
+        cfg, list(cfg.semantics.class_weights), has_replay=True,
+        num_mixup=NUM_MIXUP,
+        mixup_groups=(("cut_mixup", NUM_MIXUP),),
+        eval_forward=build_eval_forward(cfg, THINGS, NUM_CLASSES))
+    return state, step
+
+
+def automask_noise(torch, rng, target_size, source_size, num_scales):
+    """Automask normals for one step in the order the step asks for them
+    (source scales, then target scales), as numpy arrays."""
+    import numpy as np
+    shapes = [(NUM_SOURCE, 2, source_size[0] >> s, source_size[1] >> s)
+              for s in range(num_scales)]
+    shapes += [(1 + NUM_REPLAY, 2, target_size[0] >> s, target_size[1] >> s)
+               for s in range(num_scales)]
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in shapes]
+
+
+def injected(torch, arrays, device):
+    arrays = list(arrays)
+
+    def noise(shape):
+        draw = arrays.pop(0)
+        assert tuple(draw.shape) == tuple(shape), (draw.shape, shape)
+        return torch.from_numpy(draw).to(device)
+    return noise
+
+
+def check_adapt_outputs(torch, metrics, results, stats, height, width):
+    for key, value in metrics.items():
+        if key != "target_skipped":
+            assert bool(torch.isfinite(value)), f"loss {key} not finite"
+    for key in ("d_abs_rel", "d_sq_rel", "d_rmse", "d_rmse_log", "d_a1"):
+        assert bool(torch.isfinite(stats[key])), f"{key} not finite"
+    conf_sum = int(stats["sem_conf"].sum())
+    assert conf_sum == height * width, conf_sum
+    check_outputs(torch, results, 1, height, width)
 
 
 def main() -> int:
@@ -356,17 +514,121 @@ def main() -> int:
           f"call {plain_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.3f} us "
           f"({bound_by}: {moved} B, {ops} FP32 ops)")
 
-    phase("6 result")
+    phase("6 adaptation step")
+    target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
+                                                 SOURCE_WIDTH)
+    cfg = adapt_config(target_size, source_size)
+    state, step = build_adapt(torch, modules, cfg, device)
+    frozen = {name: [p.detach().clone() for p in
+                     getattr(state.student, name).parameters()]
+              for name in state.frozen_modules}
+    live0 = {name: [p.detach().clone() for p in
+                    getattr(state.student, name).parameters()]
+             for name in state.live_modules()}
+    print(f"frozen: {list(state.frozen_modules)}; live: "
+          f"{state.live_modules()}; EMA: {list(state.ema_modules)}")
+    from codeps_torch.tasks.adapt import batch_to_device
+    batch = batch_to_device(adapt_batch(rng, target_size, source_size),
+                            device)
+    step(state, batch)                                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grouping.group_pixels_cuda.launches = 0
+    step_seconds = []
+    for i in range(ADAPT_STEPS):
+        if i == ADAPT_STEPS - 1:
+            ema0 = [p.detach().clone() for p in
+                    state.teacher.semantic_head.parameters()]
+        t0 = time.perf_counter()
+        metrics, features, results, stats = step(state, batch)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+        check_adapt_outputs(torch, metrics, results, stats, HEIGHT, WIDTH)
+    adapt_launches = grouping.group_pixels_cuda.launches
+    adapt_peak = torch.cuda.max_memory_allocated()
+    print(f"grouping launches in the {ADAPT_STEPS} timed steps: "
+          f"{adapt_launches}")
+    assert adapt_launches == ADAPT_STEPS, adapt_launches
+    print("losses of the last step: " + ", ".join(
+        f"{k} {float(v):.6g}" for k, v in metrics.items()))
+    print(f"teacher eval of the last step: d_abs_rel "
+          f"{float(stats['d_abs_rel']):.6g}, confusion matrix sum "
+          f"{int(stats['sem_conf'].sum())}, "
+          f"{int(results['instance'].max())} instance ids")
+    assert tuple(features.shape) == (1, 2048), features.shape
+    assert int(state.dist_count) == 1 + ADAPT_STEPS, int(state.dist_count)
+    for name, before in frozen.items():
+        for p, p0 in zip(getattr(state.student, name).parameters(), before):
+            assert torch.equal(p, p0), f"frozen {name} moved"
+    for name, before in live0.items():
+        moved = any(not torch.equal(p, p0) for p, p0 in zip(
+            getattr(state.student, name).parameters(), before))
+        assert moved, f"live {name} did not move"
+    alpha = state.ema_alpha["semantic_head"]
+    for e, e0, p in zip(state.teacher.semantic_head.parameters(), ema0,
+                        state.student.semantic_head.parameters()):
+        assert torch.equal(e, alpha * e0 + (1.0 - alpha) * p), \
+            "semantic teacher != EMA formula"
+    for name in ("depth_head", "pose_head", "backbone_pose_sflow"):
+        for e, p in zip(getattr(state.teacher, name).parameters(),
+                        getattr(state.student, name).parameters()):
+            assert torch.equal(e, p), f"{name} teacher != student"
+    step_ms = statistics.median(step_seconds) * 1e3
+    print(f"adaptation step latency (host clock, median of "
+          f"{ADAPT_STEPS}): {step_ms:.3f} ms; all: "
+          f"{[round(t * 1e3, 3) for t in step_seconds]}")
+    print(f"adaptation steps per second: {1e3 / step_ms:.3f}")
+    print(f"adaptation peak device memory: {adapt_peak / 2**20:.1f} MiB")
+    del state, batch, metrics, results, stats, features, frozen, live0
+
+    small_target, small_source = (64, 192), (64, 128)
+    small_cfg = adapt_config(small_target, small_source)
+    small_batch = adapt_batch(rng, small_target, small_source)
+    noise = automask_noise(torch, rng, small_target, small_source,
+                           small_cfg.depth.num_recon_scales)
+    cpu_modules = init_params(build_modules(
+        small_cfg, NUM_CLASSES, device="cpu"), seed=SEED, device="cpu")
+    calibrate_batch_norm(torch, cpu_modules,
+                         small_batch["target"]["frames"][:, 0])
+    card_modules = copy.deepcopy(cpu_modules)
+    outs = {}
+    for name, mods, dev in (("card", card_modules, device),
+                            ("cpu", cpu_modules, torch.device("cpu"))):
+        small_state, small_step = build_adapt(torch, mods, small_cfg, dev)
+        metrics, features, results, stats = small_step(
+            small_state, small_batch, noise=injected(torch, noise, dev))
+        outs[name] = ({k: float(v) for k, v in metrics.items()},
+                      features.cpu(), {k: float(v) for k, v in stats.items()
+                                       if v.ndim == 0})
+    for key, ref in outs["cpu"][0].items():
+        err = abs(outs["card"][0][key] - ref)
+        print(f"64x192 step card vs CPU {key}: {outs['card'][0][key]:.6g} "
+              f"vs {ref:.6g}, rel err {err / max(abs(ref), 1e-30):.3g}")
+        assert err <= REL_TOL * abs(ref), key
+    err = float((outs["card"][1] - outs["cpu"][1]).abs().max())
+    print(f"64x192 step card vs CPU replay features: max abs err {err:.3g}")
+    assert err <= REL_TOL * float(outs["cpu"][1].abs().max())
+    for key in ("d_abs_rel", "d_rmse"):
+        ref = outs["cpu"][2][key]
+        assert abs(outs["card"][2][key] - ref) <= REL_TOL * abs(ref), key
+
+    phase("7 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
         "replaces": "codeps_tpu/ops/pallas/grouping.py:30",
-        "launches": launches, "exact": True, "max_abs_err": max_err,
+        "launches": launches + adapt_launches,
+        "launches_by_path": {"serve": launches, "adapt": adapt_launches},
+        "exact": True, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
         "call_ms": kernel_call_ms,
         "valid_centers": num_valid}]}))
+    print(json.dumps({"adapt_step": {
+        "ms": step_ms, "steps_per_s": 1e3 / step_ms,
+        "peak_mib": adapt_peak / 2**20,
+        "all_ms": [t * 1e3 for t in step_seconds]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -81,6 +81,15 @@ def depth_head(params: Mapping) -> StateDict:
     return sd
 
 
+def pose_head(params: Mapping) -> StateDict:
+    """Flax squeeze/pose_0/pose_1/pose_2 -> the reference's ``net.0..3``."""
+    sd: StateDict = {}
+    for idx, name in enumerate(("squeeze", "pose_0", "pose_1", "pose_2")):
+        sd[f"net.{idx}.weight"] = _conv(params[name]["kernel"])
+        sd[f"net.{idx}.bias"] = _vec(params[name]["bias"])
+    return sd
+
+
 def semantic_head(params: Mapping, use_guda_fusion: bool) -> StateDict:
     sd: StateDict = {}
     _decoder_convs(sd, params)
@@ -128,17 +137,23 @@ def instance_head(params: Mapping, stats: Mapping,
 def state_dicts_from_jax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any],
                          cfg) -> Dict[str, StateDict]:
-    """{module_name: state_dict} for every serving module of the JAX
-    trees: the ResNet encoder and the depth, semantic and instance heads.
-    The pose backbone, pose head and flow head wait for the training path
-    and are skipped."""
+    """{module_name: state_dict} for every module of the JAX trees: the
+    two ResNet encoders and the depth, pose, semantic and instance heads.
+    The flow head is not ported yet and is skipped."""
     out: Dict[str, StateDict] = {}
     if "backbone_po_depth" in params:
         out["backbone_po_depth"] = resnet_encoder(
             params["backbone_po_depth"], batch_stats["backbone_po_depth"],
             cfg.model.po_depth_net.params.nof_layers)
+    if "backbone_pose_sflow" in params:
+        out["backbone_pose_sflow"] = resnet_encoder(
+            params["backbone_pose_sflow"],
+            batch_stats["backbone_pose_sflow"],
+            cfg.model.pose_sflow_net.params.nof_layers)
     if "depth_head" in params:
         out["depth_head"] = depth_head(params["depth_head"])
+    if "pose_head" in params:
+        out["pose_head"] = pose_head(params["pose_head"])
     if "semantic_head" in params:
         out["semantic_head"] = semantic_head(
             params["semantic_head"], cfg.model.semantic_head.use_guda_fusion)

@@ -1,11 +1,11 @@
-"""Model composition: build and initialize the serving modules.
+"""Model composition: build and initialize the CoDEPS modules.
 
 Counterpart of ``codeps_tpu/models/codeps_net.py:28-178``. Modules are
-addressed by the reference's names (``backbone_po_depth``, ``depth_head``,
-``semantic_head``, ``instance_head``), so each module's ``state_dict`` is
-the one a reference checkpoint stores under that name. This slice builds
-the modules that serve: the pose backbone and head and the flow head come
-with the training path.
+addressed by the reference's names (``backbone_po_depth``,
+``backbone_pose_sflow``, ``depth_head``, ``pose_head``, ``semantic_head``,
+``instance_head``), so each module's ``state_dict`` is the one a reference
+checkpoint stores under that name. The flow head (``make_sflow``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,23 +16,28 @@ import torch
 from torch import nn
 
 from codeps_torch.device import resolve_device
-from codeps_torch.models.heads import DepthHead, InstanceHead, SemanticHead
-from codeps_torch.models.resnet import ResNetEncoder
+from codeps_torch.models.heads import (DepthHead, InstanceHead, PoseHead,
+                                       SemanticHead)
+from codeps_torch.models.resnet import ResNetEncoder, make_encoder
 
-MODULE_NAMES = ("backbone_po_depth", "depth_head", "semantic_head",
-                "instance_head")
+MODULE_NAMES = ("backbone_po_depth", "backbone_pose_sflow", "depth_head",
+                "pose_head", "semantic_head", "instance_head")
 
 
 class CodepsModules(nn.Module):
-    """The serving modules; absent heads are None."""
+    """The CoDEPS modules; absent ones are None."""
 
     def __init__(self, backbone_po_depth: ResNetEncoder,
+                 backbone_pose_sflow: ResNetEncoder | None,
                  depth_head: DepthHead | None,
+                 pose_head: PoseHead | None,
                  semantic_head: SemanticHead | None,
                  instance_head: InstanceHead | None, num_classes: int):
         super().__init__()
         self.backbone_po_depth = backbone_po_depth
+        self.backbone_pose_sflow = backbone_pose_sflow
         self.depth_head = depth_head
+        self.pose_head = pose_head
         self.semantic_head = semantic_head
         self.instance_head = instance_head
         self.num_classes = num_classes
@@ -44,15 +49,23 @@ class CodepsModules(nn.Module):
 
 def build_modules(cfg, num_classes: int,
                   device: str | torch.device | None = None) -> CodepsModules:
-    """Construct the serving modules from a config tree on ``device``
-    (``cuda`` unless given), in eval mode, with torch's default init;
-    ``init_params`` gives them seeded weights."""
+    """Construct the modules from a config tree on ``device`` (``cuda``
+    unless given), in eval mode, with torch's default init; ``init_params``
+    gives them seeded weights. With ``make_depth`` the pose backbone (two
+    RGB frames, 6 channels) and the pose head come with the depth head."""
+    if cfg.model.make_sflow:
+        raise NotImplementedError("the flow head is not ported yet")
     dev = resolve_device(device)
     with torch.device(dev):
         backbone = ResNetEncoder(cfg.model.po_depth_net.params.nof_layers)
         num_ch_enc = backbone.num_ch_enc
-        depth_head = (DepthHead(num_ch_enc) if cfg.model.make_depth
-                      else None)
+        backbone_pose = depth_head = pose_head = None
+        if cfg.model.make_depth:
+            backbone_pose = make_encoder(
+                cfg.model.pose_sflow_net.params.nof_layers,
+                num_input_images=2)
+            depth_head = DepthHead(num_ch_enc)
+            pose_head = PoseHead(backbone_pose.num_ch_enc)
         semantic_head = None
         if cfg.model.make_semantic:
             semantic_head = SemanticHead(
@@ -63,8 +76,8 @@ def build_modules(cfg, num_classes: int,
             instance_head = InstanceHead(
                 num_ch_enc,
                 use_thing_mask=cfg.model.instance_head.use_thing_mask)
-    return CodepsModules(backbone, depth_head, semantic_head, instance_head,
-                         num_classes).eval()
+    return CodepsModules(backbone, backbone_pose, depth_head, pose_head,
+                         semantic_head, instance_head, num_classes).eval()
 
 
 def _truncated_normal(shape, std: float,

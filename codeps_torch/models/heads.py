@@ -1,9 +1,10 @@
-"""Task heads of the serving path (NCHW): depth, semantic, instance.
+"""Task heads (NCHW): depth, pose, semantic, instance.
 
-Counterpart of ``codeps_tpu/models/heads.py:148-454``. Where the JAX
-package evaluates a layer through a TPU rewrite (block-phase convs,
-commuted upsampling), this is the plain form that rewrite was proven
-equal to:
+Counterpart of ``codeps_tpu/models/heads.py:148-454`` (the flow head is
+not ported yet). Where the JAX package evaluates a layer through a TPU
+rewrite (block-phase convs, commuted upsampling), this is the plain form
+that rewrite was proven equal to; the adaptation step trains through
+these plain forms too:
 
   - DepthHead's full-resolution tail is upconv_0_0, nearest 2x, a
     zero-padded 3x3 conv + ELU (upconv_0_1), a reflect-padded 3x3
@@ -17,8 +18,8 @@ equal to:
     align-corners upsampling, as the JAX package does.
 
 Parameter names follow the reference checkpoints (``upconvs_1.4.0.weight``,
-``semconv_guda.weight``, ``decoder.net.fuse_0.3.weight``,
-``center_head.net.conv.bias``). The depth head keeps only
+``semconv_guda.weight``, ``net.3.bias`` of the pose head,
+``decoder.net.fuse_0.3.weight``, ``center_head.net.conv.bias``). The depth head keeps only
 ``dispconvs.0``: the coarser disparities feed nothing.
 """
 
@@ -29,6 +30,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from codeps_torch.geometry.pose import transformation_from_parameters
 from codeps_torch.ops.resize import (resize_bilinear_nchw,
                                      upsample_nearest_2x_nchw)
 
@@ -123,6 +125,34 @@ class SemanticHead(nn.Module):
         else:
             logits = self.semconv(x)
         return torch.softmax(logits.float(), dim=1)
+
+
+class PoseHead(nn.Module):
+    """Squeeze + three convs + spatial mean -> 0.01 x (axis-angle,
+    translation) -> (B, 4, 4) SE(3) transform.
+
+    Counterpart of ``codeps_tpu/models/heads.py:201-231``. As in the
+    reference (built with ``num_frames_to_predict_for=2``), the last conv
+    emits 12 channels and only the first frame's six parameters are used.
+    """
+
+    def __init__(self, num_ch_enc: Sequence[int],
+                 num_frames_to_predict_for: int = 2):
+        super().__init__()
+        self.net = nn.ModuleList([
+            nn.Conv2d(num_ch_enc[-1], 256, 1),
+            nn.Conv2d(256, 256, 3, padding=1),
+            nn.Conv2d(256, 256, 3, padding=1),
+            nn.Conv2d(256, 6 * num_frames_to_predict_for, 1)])
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                invert_pose: bool = False) -> torch.Tensor:
+        x = feats[-1]
+        for conv in self.net[:-1]:
+            x = torch.relu(conv(x))
+        out = 0.01 * self.net[-1](x).float().mean(dim=(2, 3))
+        return transformation_from_parameters(out[:, :3], out[:, 3:6],
+                                              invert=invert_pose)
 
 
 def _depthwise_separable(in_ch: int, out_ch: int) -> nn.Sequential:

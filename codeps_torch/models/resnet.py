@@ -3,11 +3,19 @@
 Counterpart of ``codeps_tpu/models/resnet.py:116-267``: torchvision-v1.5
 ResNet-{18,34,50,101,152} returning the pyramid [conv1+relu, layer1..4]
 with channels [64, 64, 128, 256, 512] (x4 from layer1 up for bottleneck
-variants). BatchNorm runs on its running statistics (eval), eps 1e-5.
-conv1 is the plain 7x7/stride 2 (the JAX package's space-to-depth fold is
-a TPU rewrite of the same conv). Parameter names follow the reference
-checkpoints: ``encoder.conv1.weight``, ``encoder.layer3.22.conv2.weight``,
+variants), eps 1e-5. conv1 is the plain 7x7/stride 2 (the JAX package's
+space-to-depth fold is a TPU rewrite of the same conv) over
+``num_input_images * num_channels_input`` channels: 3 for the depth
+encoder, 6 for the pose encoder, which takes two frames stacked on the
+channel axis. Parameter names follow the reference checkpoints:
+``encoder.conv1.weight``, ``encoder.layer3.22.conv2.weight``,
 ``encoder.layer1.0.downsample.1.running_mean``.
+
+BatchNorm in eval mode normalizes with the running statistics. In train
+mode, after ``keep_running_stats``, it normalizes with the batch's
+statistics and leaves the running statistics as they are: the JAX
+adaptation step never updates them (it discards Flax's ``batch_stats``
+updates).
 """
 
 from __future__ import annotations
@@ -120,3 +128,24 @@ class ResNetEncoder(nn.Module):
         feats.append(enc.layer3(feats[-1]))
         feats.append(enc.layer4(feats[-1]))
         return feats
+
+
+def make_encoder(num_layers: int, num_input_images: int = 1,
+                 num_channels_input: int = 3) -> ResNetEncoder:
+    """An encoder, with the reference's rule that a multi-image or non-RGB
+    input needs ResNet-18 or ResNet-50 (``resnet_encoder.py:54``)."""
+    if (num_input_images > 1 or num_channels_input != 3) \
+            and num_layers not in (18, 50):
+        raise ValueError("Multi-image input requires ResNet-18 or ResNet-50")
+    return ResNetEncoder(num_layers, num_input_images, num_channels_input)
+
+
+def keep_running_stats(module: nn.Module) -> nn.Module:
+    """Make every BatchNorm in ``module`` normalize with batch statistics in
+    train mode without updating its running statistics; eval mode still
+    uses them. (``nn.BatchNorm2d`` with ``track_running_stats`` off and its
+    buffers kept does exactly that.)"""
+    for sub in module.modules():
+        if isinstance(sub, nn.BatchNorm2d):
+            sub.track_running_stats = False
+    return module

@@ -1,0 +1,456 @@
+"""The online-adaptation step: teacher eval, multi-domain losses, Adam,
+EMA blend and the non-moving-frame skip.
+
+Counterpart of ``codeps_tpu/tasks/adapt.py:53-919`` for composed mixup
+samples (the JAX ``fused_mixup=False`` layout) without a flow head. One
+call of the step does, for one streamed frame:
+
+  1. the multi-domain forward with autograd through the live modules
+     only: depth and pose losses on the source triplets and on the target
+     triplet batched with target replay, the top-k CE on source replay and
+     on each mixup strategy group, and the frozen instance head's source
+     losses;
+  2. backward; the teacher eval of the frame on the weights from before
+     the update (panoptic fusion with the grouping kernel, depth metrics,
+     confusion matrix);
+  3. the skip ring's push, Adam, and the per-module EMA blend.
+
+Batch layout (NHWC, frame axis order [t, t-1, t+1]; numpy or tensors,
+uint8 frames are normalized here, floats are taken as normalized):
+  target: frames (1, 3, Ht, Wt, 3), camera (1, 4)
+  source: frames (Ns, 3, Hs, Ws, 3), camera, semantic, semantic_weights,
+          center (Ns, Hs, Ws, 1), offset (Ns, Hs, Ws, 2), optional
+          thing_mask
+  target_replay (with ``has_replay``): frames (Nr, 3, Ht, Wt, 3), camera
+  mixup (with ``num_mixup``): rgb (Nm, Hs, Ws, 3), semantic (Nm, Hs, Ws)
+  eval_gt (optional): depth_gt, semantic, semantic_eval
+  do_ema (optional): False keeps the teacher untouched for this step.
+"""
+
+from __future__ import annotations
+
+import types
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from codeps_torch.evaluation.depth_metrics import compute_depth_metrics
+from codeps_torch.evaluation.semantic_metrics import compute_confusion_matrix
+from codeps_torch.losses import (binary_mask_loss, center_loss,
+                                 edge_aware_smoothness_loss,
+                                 ema_consistency_loss, offset_loss,
+                                 reconstruction_loss, semantic_loss)
+from codeps_torch.models.codeps_net import MODULE_NAMES
+from codeps_torch.ops.normalize import maybe_normalize
+from codeps_torch.ops.panoptic import panoptic_fusion_batch
+from codeps_torch.tasks.forward import apply_encoder, depth_forward
+from codeps_torch.tasks.optim import set_learning_rate
+from codeps_torch.tasks.state import DIST_BUFFER_LEN, AdaptState
+
+__all__ = ["DIST_BUFFER_LEN", "batch_to_device", "build_eval_forward",
+           "skip_decision", "push_ring_buffer", "make_adapt_step"]
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+# --------------------------------------------------------------- teacher
+
+def build_eval_forward(cfg, thing_list, num_classes: int,
+                       eval_ignore_classes=()):
+    """The teacher's evaluation of a target frame: predictions, panoptic
+    fusion and the metric ingredients (``adapt.py:53-132``; the per-class
+    depth stats come with the runner).
+
+    Returns ``eval_step(modules, batch, feats=None, sem_probs=None,
+    depth=None) -> (results, stats)``. ``modules`` has the attributes of
+    ``CodepsModules``, in eval mode; ``batch`` holds ``frames`` (B, 3, H,
+    W, 3) or ``image`` (B, H, W, 3) and optionally ``depth_gt``,
+    ``semantic`` and ``semantic_eval``. ``feats`` (the encoder's NCHW
+    pyramid), ``sem_probs`` and ``depth`` (NCHW) stand in for forwards
+    already run. Results are NHWC, as the JAX facade's.
+    """
+    use_gt_scale = cfg.eval.depth.use_gt_scale
+    depth_ranges = tuple(cfg.eval.depth.depth_ranges)
+    thing_list = tuple(thing_list)
+    mean = tuple(cfg.dataset.normalization.rgb_mean)
+    std = tuple(cfg.dataset.normalization.rgb_std)
+
+    @torch.no_grad()
+    def eval_step(modules, batch, feats=None, sem_probs=None, depth=None):
+        if feats is None:
+            image = (batch["frames"][:, 0] if "frames" in batch
+                     else batch["image"])
+            feats = apply_encoder(modules.backbone_po_depth,
+                                  maybe_normalize(image, mean, std))
+        results: Dict[str, Any] = {}
+        stats: Dict[str, Any] = {}
+        if modules.depth_head is not None:
+            if depth is None:
+                depth, _ = modules.depth_head(feats)
+            results["depth"] = _nhwc(depth)
+            if batch.get("depth_gt") is not None:
+                stats.update(compute_depth_metrics(
+                    batch["depth_gt"], results["depth"], use_gt_scale,
+                    depth_ranges))
+        if modules.semantic_head is not None:
+            if sem_probs is None:
+                sem_probs = modules.semantic_head(feats)
+            sem_soft = _nhwc(sem_probs)
+            sem_pred = sem_soft.argmax(dim=-1).to(torch.int32)
+            results["semantic"] = sem_pred
+            results["semantic_soft"] = sem_soft
+            if batch.get("semantic") is not None:
+                gt = batch.get("semantic_eval", batch["semantic"])
+                stats["sem_conf"] = compute_confusion_matrix(
+                    sem_pred, gt, num_classes, eval_ignore_classes)
+        if modules.instance_head is not None:
+            center, offset, thing_mask = modules.instance_head(feats)
+            results["center"] = _nhwc(center)
+            results["offset"] = _nhwc(offset)
+            results["thing_mask"] = (None if thing_mask is None
+                                     else _nhwc(thing_mask))
+        if modules.semantic_head is not None \
+                and modules.instance_head is not None:
+            pan, inst, _ = panoptic_fusion_batch(
+                results["semantic_soft"], results["center"],
+                results["offset"], thing_list)
+            results["panoptic"] = pan
+            results["instance"] = inst
+        return results, stats
+
+    return eval_step
+
+
+# ------------------------------------------------------------- skip ring
+
+def skip_decision(dist_buffer: torch.Tensor, dist_count: torch.Tensor,
+                  dist: torch.Tensor) -> torch.Tensor:
+    """Skip a non-moving frame: the ring is full and its mean exceeds ten
+    times the current camera translation (``algos/depth.py:543-548``)."""
+    capacity = dist_buffer.shape[0]
+    full = dist_count >= capacity
+    return full & (dist_buffer.sum() / capacity > 10.0 * dist)
+
+
+def push_ring_buffer(dist_buffer: torch.Tensor, dist_count: torch.Tensor,
+                     dist_head: torch.Tensor, dist: torch.Tensor,
+                     skip: torch.Tensor):
+    """(buffer, count, head) after appending ``dist`` unless the frame was
+    skipped; new tensors, computed on the device without a host wait."""
+    capacity = dist_buffer.shape[0]
+    pushed = dist_buffer.index_put((dist_head.reshape(1),),
+                                   dist.reshape(1).to(dist_buffer.dtype))
+    return (torch.where(skip, dist_buffer, pushed),
+            torch.where(skip, dist_count,
+                        torch.clamp(dist_count + 1, max=capacity)),
+            torch.where(skip, dist_head, (dist_head + 1) % capacity))
+
+
+# --------------------------------------------------------- student update
+
+def batch_to_device(tree, device):
+    """A batch (nested dicts of numpy arrays or tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: batch_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (np.ndarray, np.generic)):
+        return torch.from_numpy(np.asarray(tree)).to(device)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
+def _triplets(frames: torch.Tensor, mean, std) -> list[torch.Tensor]:
+    """(B, 3, H, W, 3) NHWC frames -> [t, t-1, t+1], each (B, 3, H, W)."""
+    frames = maybe_normalize(frames, mean, std).permute(0, 1, 4, 2, 3)
+    return [frames[:, i].contiguous() for i in range(3)]
+
+
+def _nchw_images(images: torch.Tensor, mean, std) -> torch.Tensor:
+    return maybe_normalize(images, mean, std).permute(0, 3, 1, 2) \
+        .contiguous()
+
+
+def _blend_ema(state: AdaptState, do_ema: bool) -> None:
+    """``teacher = alpha * teacher + (1 - alpha) * student`` per module,
+    written as such so that alpha 0 copies and alpha 1 keeps exactly.
+    Modules kept (alpha 1, or every module when ``do_ema`` is false) are
+    left alone: the formula would return them unchanged. BatchNorm
+    buffers are never blended."""
+    if not do_ema:
+        return
+    for name in state.student.module_names():
+        alpha = state.ema_alpha[name]
+        if alpha == 1.0:
+            continue
+        for e, p in zip(getattr(state.teacher, name).parameters(),
+                        getattr(state.student, name).parameters()):
+            e.copy_(alpha * e + (1.0 - alpha) * p)
+
+
+def make_adapt_step(cfg, class_weights, has_replay: bool = True,
+                    num_mixup: int = 0, mixup_groups=None,
+                    sem_ignore_classes=None, eval_forward=None):
+    """Build the adaptation step (``adapt.py:233 make_adapt_step``).
+
+    Returns ``adapt_step(state, batch, noise=None)``, which updates
+    ``state`` in place and returns ``(metrics, image_features)``, or with
+    ``eval_forward`` (from ``build_eval_forward``) ``(metrics,
+    image_features, eval_results, eval_stats)``. ``noise`` replaces the
+    state's generator as the source of the automask noise
+    (``losses/photometric.py``): a callable ``shape -> tensor`` asked for
+    the source domain's scales, then the target domain's.
+
+    ``mixup_groups`` = ((strategy, count), ...) partitions the mixup
+    samples; each group gets ONE pooled top-k CE with unit pixel weights,
+    weighted once by ``cfg.losses.weights[f"semantic_{strategy}"]`` (the
+    reference's per-key loss, ``adapt.py:686-708``).
+
+    With a frozen depth encoder, the teacher eval takes the target frame's
+    encoder features and, when the depth head is not EMA-filtered, its
+    depth from the student's loss forward: frozen and copy-class teacher
+    modules equal the student's at the start of a frame
+    (``adapt.py:255-273``; one step per frame, as the published config
+    runs), so only EMA-filtered modules are read from the teacher.
+    Otherwise the teacher evaluates the frame with all of its own
+    modules.
+    """
+    weights = {k: v for k, v in cfg.losses.weights.items()}
+    num_scales = cfg.depth.num_recon_scales
+    top_k = cfg.semantics.top_k
+    mean = tuple(cfg.dataset.normalization.rgb_mean)
+    std = tuple(cfg.dataset.normalization.rgb_std)
+    if mixup_groups is None:
+        mixup_groups = (("cut_mixup", num_mixup),) if num_mixup else ()
+    mixup_groups = tuple((str(n), int(c)) for n, c in mixup_groups if c)
+    if sum(c for _, c in mixup_groups) != num_mixup:
+        raise ValueError(f"mixup_groups {mixup_groups} do not add up to "
+                         f"{num_mixup} samples")
+
+    def sem_loss(prediction, target, pixel_weights):
+        return semantic_loss(prediction, target, pixel_weights,
+                             class_weights=class_weights,
+                             ignore_labels=sem_ignore_classes,
+                             top_k_percent_pixels=top_k)
+
+    def depth_domain(student, images, camera, noise, per_sample=False):
+        """Depth losses of one domain: (recon, smth, transformations,
+        frame-t encoder pyramid, frame-t depth)."""
+        feats_t = student.backbone_po_depth(images[0])
+        fwd = depth_forward(student, images, feats_t)
+        recon = reconstruction_loss(camera, images, fwd["depth"],
+                                    fwd["transformations"],
+                                    num_scales=num_scales,
+                                    per_sample=per_sample, noise=noise)
+        smth = edge_aware_smoothness_loss(images[0], fwd["disparity"],
+                                          per_sample=per_sample)
+        return recon, smth, fwd["transformations"], feats_t, fwd["depth"]
+
+    def loss_fn(state: AdaptState, batch, noise, reuse_feats, reuse_depth):
+        student = state.student
+        losses: Dict[str, torch.Tensor] = {}
+        aux: Dict[str, Any] = {}
+        source = batch["source"]
+        source_images = _triplets(source["frames"], mean, std)
+        num_source = source_images[0].shape[0]
+
+        # Frozen modules hold no parameter that requires a gradient, so
+        # autograd records nothing through them.
+        source_feats = None
+        if student.depth_head is not None:
+            # ---- depth over domains (algos/depth.py:507-595)
+            recon_s, smth_s, _, source_feats, _ = depth_domain(
+                student, source_images, source["camera"], noise)
+            domain_stats = [(recon_s, smth_s, float(num_source))]
+
+            target = batch["target"]
+            nt = target["frames"].shape[0]
+            merge_tr = (has_replay and target["frames"].shape[2:]
+                        == batch["target_replay"]["frames"].shape[2:])
+            if merge_tr:
+                # Target and target replay: ONE batch through the pose
+                # net's train-mode BatchNorm, per-sample loss reduction,
+                # split by domain (adapt.py:514-548).
+                frames = torch.cat([target["frames"],
+                                    batch["target_replay"]["frames"]])
+                camera = torch.cat([target["camera"],
+                                    batch["target_replay"]["camera"]])
+                recon_v, smth_v, transforms_tr, feats_tr, depth_tr = \
+                    depth_domain(student, _triplets(frames, mean, std),
+                                 camera, noise, per_sample=True)
+                recon_t, smth_t = recon_v[:nt].mean(), smth_v[:nt].mean()
+                recon_r, smth_r = recon_v[nt:].mean(), smth_v[nt:].mean()
+                transforms_t = [t[:nt] for t in transforms_tr]
+                target_feats = [f[:nt] for f in feats_tr]
+                target_depth = depth_tr[:nt]
+            else:
+                recon_t, smth_t, transforms_t, target_feats, target_depth = \
+                    depth_domain(student,
+                                 _triplets(target["frames"], mean, std),
+                                 target["camera"], noise)
+            # Non-moving-frame check on this forward's poses: a skipped
+            # target counts 0 images in the weighted average.
+            dist = (torch.linalg.vector_norm(transforms_t[0][0, :3, 3])
+                    + torch.linalg.vector_norm(
+                        transforms_t[1][0, :3, 3])).detach() / 2.0
+            skip = skip_decision(state.dist_buffer, state.dist_count, dist)
+            aux["dist"] = dist
+            aux["target_skipped"] = skip
+            t_count = torch.where(skip, 0.0, float(nt))
+            domain_stats.append((recon_t, smth_t, t_count))
+            if has_replay:
+                if not merge_tr:
+                    replay = batch["target_replay"]
+                    recon_r, smth_r, *_ = depth_domain(
+                        student, _triplets(replay["frames"], mean, std),
+                        replay["camera"], noise)
+                domain_stats.append(
+                    (recon_r, smth_r,
+                     float(batch["target_replay"]["frames"].shape[0])))
+            total_images = sum(c for *_, c in domain_stats)
+            losses["depth_recon"] = sum(
+                r * c for r, _, c in domain_stats) / total_images
+            losses["depth_smth"] = sum(
+                s * c for _, s, c in domain_stats) / total_images
+        else:
+            target_feats = apply_encoder(student.backbone_po_depth,
+                                         maybe_normalize(
+                                             batch["target"]["frames"][:, 0],
+                                             mean, std))
+            target_depth = None
+
+        if reuse_feats:
+            aux["eval_feats"] = [f.detach() for f in target_feats]
+            if reuse_depth and target_depth is not None:
+                aux["eval_depth"] = target_depth.detach()
+
+        # ---- source supervised panoptic (the frame-t pyramid of the
+        # source triplets serves the depth and the panoptic losses)
+        if source_feats is None:
+            source_feats = student.backbone_po_depth(source_images[0])
+
+        if student.semantic_head is not None:
+            mix_feats = None
+            if num_mixup > 0:
+                mix_feats = student.backbone_po_depth(
+                    _nchw_images(batch["mixup"]["rgb"], mean, std))
+            if mix_feats is not None \
+                    and mix_feats[0].shape[1:] == source_feats[0].shape[1:]:
+                # One semantic-head pass over source and mixup: the head
+                # has no normalization layer, so batching changes nothing.
+                sem_cat = student.semantic_head(
+                    [torch.cat([fs, fm]) for fs, fm in zip(source_feats,
+                                                           mix_feats)])
+                sem_src, sem_mix = sem_cat[:num_source], sem_cat[num_source:]
+            else:
+                sem_src = student.semantic_head(source_feats)
+                sem_mix = (student.semantic_head(mix_feats)
+                           if mix_feats is not None else None)
+            losses["semantic_source"] = sem_loss(
+                sem_src, source["semantic"], source["semantic_weights"])
+            if sem_mix is not None:
+                mix_semantic = batch["mixup"]["semantic"]
+                start = 0
+                for strategy, count in mixup_groups:
+                    sl = slice(start, start + count)
+                    start += count
+                    if weights.get(f"semantic_{strategy}") is None:
+                        continue
+                    losses[f"semantic_{strategy}"] = sem_loss(
+                        sem_mix[sl], mix_semantic[sl],
+                        torch.ones(mix_semantic[sl].shape,
+                                   device=sem_mix.device))
+
+        if student.instance_head is not None:
+            center_src, offset_src, thing_mask_src = student.instance_head(
+                source_feats)
+            losses["center_source"] = center_loss(_nhwc(center_src),
+                                                  source["center"])
+            losses["offset_source"] = offset_loss(_nhwc(offset_src),
+                                                  source["offset"])
+            if thing_mask_src is not None \
+                    and source.get("thing_mask") is not None:
+                losses["thing_mask_source"] = binary_mask_loss(
+                    thing_mask_src, source["thing_mask"])
+            if "instance_head" in state.ema_modules \
+                    and batch["target"].get("center_ema") is not None:
+                center_t, offset_t, _ = student.instance_head(target_feats)
+                losses["center_ema"] = ema_consistency_loss(
+                    _nhwc(center_t), batch["target"]["center_ema"])
+                losses["offset_ema"] = ema_consistency_loss(
+                    _nhwc(offset_t), batch["target"]["offset_ema"])
+
+        total = torch.zeros((), device=state.device)
+        for key, value in losses.items():
+            weight = weights.get(key)
+            if weight is not None:
+                total = total + weight * value
+
+        # Replay-buffer features: the target frame's last-stage features,
+        # mean-pooled and L2-normalized (adapt.py:756-765).
+        pooled = target_feats[-1].detach().float().mean(dim=(2, 3))
+        aux["image_features"] = pooled / torch.clamp(
+            torch.linalg.vector_norm(pooled, dim=1, keepdim=True),
+            min=1e-12)
+        return total, losses, aux
+
+    def adapt_step(state: AdaptState, batch, noise=None):
+        student = state.student
+        frozen = state.frozen_modules
+        batch = batch_to_device(dict(batch), state.device)
+        reuse_feats = (eval_forward is not None
+                       and "backbone_po_depth" in frozen)
+        reuse_depth = (reuse_feats and student.depth_head is not None
+                       and "depth_head" not in state.ema_modules)
+        if noise is None:
+            def noise(shape):
+                return torch.randn(shape, generator=state.generator,
+                                   device=state.device)
+        for name in student.module_names():
+            getattr(student, name).train(name not in frozen)
+        state.optimizer.zero_grad(set_to_none=True)
+
+        total, losses, aux = loss_fn(state, batch, noise, reuse_feats,
+                                     reuse_depth)
+        total.backward()
+
+        eval_out = None
+        if eval_forward is not None:
+            # The teacher eval reads the weights from before the update.
+            student.eval()
+            eval_batch = {"frames": batch["target"]["frames"],
+                          **batch.get("eval_gt", {})}
+            if reuse_feats:
+                view = types.SimpleNamespace(**{
+                    name: getattr(state.teacher if name in state.ema_modules
+                                  else student, name)
+                    for name in MODULE_NAMES})
+                eval_out = eval_forward(view, eval_batch,
+                                        feats=aux["eval_feats"],
+                                        depth=aux.get("eval_depth"))
+            else:
+                eval_out = eval_forward(state.teacher, eval_batch)
+
+        if student.depth_head is not None:
+            skip = aux["target_skipped"]
+            state.dist_buffer, state.dist_count, state.dist_head = \
+                push_ring_buffer(state.dist_buffer, state.dist_count,
+                                 state.dist_head, aux["dist"], skip)
+        else:
+            skip = torch.zeros((), dtype=torch.bool, device=state.device)
+
+        set_learning_rate(state.optimizer, state.schedule(state.step))
+        state.optimizer.step()
+        with torch.no_grad():
+            _blend_ema(state, bool(batch.get("do_ema", True)))
+        state.step += 1
+
+        metrics = {"loss_total": total.detach(), "target_skipped": skip,
+                   **{k: v.detach() for k, v in losses.items()}}
+        if eval_forward is not None:
+            return metrics, aux["image_features"], eval_out[0], eval_out[1]
+        return metrics, aux["image_features"]
+
+    return adapt_step

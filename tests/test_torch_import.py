@@ -3,6 +3,7 @@ JAX and nothing of ``codeps_tpu``, import no YAML/PIL/cv2 at import time
 (the card machine may lack them), and their entry points never fall back
 to the CPU on their own."""
 
+import copy
 import re
 import subprocess
 import sys
@@ -28,13 +29,13 @@ def test_every_module_imports_without_jax_or_codeps_tpu():
             codeps_torch.__path__, "codeps_torch.")]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke
+        import chip_smoke, profile_adapt_step
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 30
 
 
 _IMPORT = re.compile(
@@ -47,7 +48,7 @@ def test_source_scan_finds_no_jax_or_codeps_tpu_import():
     # the kernel build directory holds outputs, not sources
     files = sorted(path for path in (REPO / "codeps_torch").rglob("*.py")
                    if "_build" not in path.parts)
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "profile_adapt_step.py"]
     assert len(files) > 20
     offenders = [f"{path.relative_to(REPO)}: {match.group(0).strip()}"
                  for path in files
@@ -64,6 +65,7 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
     from codeps_torch.config import get_cfg_defaults_adapt
     from codeps_torch.models import CodepsNet, build_modules, init_params
     from codeps_torch.scripts import infer
+    from codeps_torch.tasks.state import make_adapt_state
 
     cfg = get_cfg_defaults_adapt()
     cfg.model.po_depth_net.params.nof_layers = 18
@@ -78,7 +80,11 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
         infer.main(["--checkpoint", str(tmp_path / "none.pth"),
                     "--filename_config", str(tmp_path / "none.yaml"),
                     "--images", str(tmp_path), "--output", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_adapt_state(modules, 1e-4)
     # the CPU, asked for by name, works
+    assert make_adapt_state(copy.deepcopy(modules), 1e-4,
+                            device="cpu").device == torch.device("cpu")
     net = CodepsNet(init_params(modules, seed=0, device="cpu"),
                     device="cpu")
     assert net.device == torch.device("cpu")
