@@ -11,18 +11,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
  3. kernel against plain: ``group_pixels_cuda`` equals
     ``group_pixels_plain`` exactly at 384x1408, K = 200, B = 1 and 2,
     with invalid centers, an image without centers, NaN offsets and
-    duplicate centers;
+    duplicate centers (truly NHWC offsets, copied once by the wrapper),
+    and on the fixed timing inputs of phase 5 at every valid-center count
+    (read in place, no copy);
  4. slice: the serving path at full width (ResNet-101, GUDA semantic
     head, instance head, 14 classes, 384x1408, seeded weights) streams
     8 uint8 frames through ``CodepsNet(mode="eval")``; the grouping
-    kernel must launch once per frame, the outputs must be finite and
+    kernel must launch once per frame and read the head's offset planes
+    in place (no layout copy), the outputs must be finite and
     well formed, at least one frame must hold a center, and the fused
     maps must equal the fusion recomputed on the CPU with the plain
     grouping; a 64x128 run on the card must agree with the same slice
     on the CPU;
- 5. timing, on the inputs of the last streamed frame: the kernel's device
-    time and its time per call with the host's launch overhead; the plain
-    version's time per call;
+ 5. timing: the kernel's device time, its bound and what bounds it on
+    fixed inputs that do not depend on the weights (1x384x1408 offsets
+    drawn from the seed and passed as the NHWC view of an NCHW tensor,
+    K = 200 slots of which the first n are valid, n in VALID_COUNTS);
+    then on the inputs of the last streamed frame: the kernel's device
+    time, its time per call with the host's launch overhead, and the
+    plain version's time per call;
  6. adaptation step: the online adaptation step of
     ``cfg/adapt_cityscapes_kitti_360.yaml`` at full width on the phase-4
     modules (frozen ResNet-101 and instance head; live ResNet-18 pose net,
@@ -33,12 +40,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
     steps; every loss must be finite, frozen parameters bit-unchanged,
     live ones moved, the semantic teacher equal to the EMA formula
     recomputed here, the depth and pose teachers equal to the student, the
-    grouping kernel launched once per step, the depth metrics finite and
-    the confusion matrix summing to H*W. Prints the step latency, steps/s
-    and peak memory. Then one step at 64x192 (target) and 64x128 (source)
-    from the same weights, batch and automask noise on the card and on the
-    CPU, whose losses must agree;
- 7. the ``kernels`` line, then the last line
+    grouping kernel launched once per step with no layout copy, the depth
+    metrics finite and the confusion matrix summing to H*W. Prints the
+    step latency, steps/s and peak memory. Then one step at 64x192
+    (target) and 64x128 (source) from the same weights, batch and
+    automask noise on the card and on the CPU, whose losses must agree;
+ 7. the ``kernels`` line (with the per-n times and bounds and the layout
+    copies on each path), then the last line
     ``{"ok": true, "device": {...}}``.
 
 Random weights from the JAX package's initialization scheme let the
@@ -59,6 +67,7 @@ threshold: a few tens of centers, as a street scene has instances.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import statistics
 import subprocess
@@ -68,6 +77,8 @@ from pathlib import Path
 
 HEIGHT, WIDTH = 384, 1408
 TOP_K = 200
+# valid centers of the fixed grouping inputs (phases 3 and 5)
+VALID_COUNTS = (0, 16, 64, 200)
 NUM_FRAMES = 8
 SEED = 0
 THINGS = (9, 10, 11, 12, 13)
@@ -140,6 +151,37 @@ def grouping_cases(torch, device):
     for name, images in cases:
         yield (name, *(torch.from_numpy(np.stack(parts)).to(device)
                        for parts in zip(*images)))
+
+
+def fixed_grouping_inputs(torch, device, num_valid):
+    """Grouping inputs that do not depend on the model: centers (1, K, 2)
+    uniform over the image, of which the first ``num_valid`` are valid
+    (the prefix layout of ``find_instance_centers_batch``), and offsets
+    ~ N(0, 20) px as the NHWC view (1, H, W, 2) of an NCHW tensor, the
+    layout the instance head hands to fusion. The same draws for every
+    ``num_valid``."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    planes = rng.normal(0, 20, (1, 2, HEIGHT, WIDTH)).astype(np.float32)
+    yx = rng.uniform([0, 0], [HEIGHT, WIDTH], (1, TOP_K, 2))
+    valid = np.arange(TOP_K)[None] < num_valid
+    return (torch.from_numpy(yx.astype(np.float32)).to(device),
+            torch.from_numpy(valid).to(device),
+            torch.from_numpy(planes).to(device).permute(0, 2, 3, 1))
+
+
+def grouping_bound(num_valid):
+    """(bound_ms, bound_by, bytes, operations) of grouping one
+    HEIGHTxWIDTH image against TOP_K slots of which ``num_valid`` are
+    valid: offsets read and ids written once (12 bytes a pixel), centers
+    and flags read once; 5 FP32 operations per (pixel, valid center)."""
+    pixels = HEIGHT * WIDTH
+    moved = pixels * (8 + 4) + TOP_K * (8 + 1)
+    ops = 5 * pixels * num_valid
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms > bytes_ms else "bytes", moved, ops)
 
 
 def calibrate_batch_norm(torch, modules, image):
@@ -397,14 +439,27 @@ def main() -> int:
 
     phase("3 kernel against plain")
     max_err = 0
-    for name, yx, valid, offsets in grouping_cases(torch, device):
+    # made one at a time and dropped after, so that none counts in the
+    # later phases' peak memory; truly NHWC inputs are copied once, views
+    # never
+    cases = itertools.chain(
+        ((*case, 1) for case in grouping_cases(torch, device)),
+        ((f"fixed inputs, first {n} of {TOP_K} valid, NCHW view",
+          *fixed_grouping_inputs(torch, device, n), 0)
+         for n in VALID_COUNTS))
+    for name, yx, valid, offsets, copies in cases:
+        before = grouping.group_pixels_cuda.copies
         ours = grouping.group_pixels_cuda(yx, valid, offsets)
+        copied = grouping.group_pixels_cuda.copies - before
         ref = grouping.group_pixels_plain(yx, valid, offsets)
         torch.cuda.synchronize()
         err = int((ours.long() - ref.long()).abs().max())
         max_err = max(max_err, err)
-        print(f"{name}: valid {valid.sum(1).tolist()}, max |id diff| {err}")
+        print(f"{name}: valid {valid.sum(1).tolist()}, max |id diff| "
+              f"{err}, layout copies {copied}")
         assert torch.equal(ours, ref), f"kernel != plain on {name}"
+        assert copied == copies, (name, copied)
+    del yx, valid, offsets, ours, ref
 
     phase("4 slice")
     cfg = slice_config()
@@ -426,6 +481,7 @@ def main() -> int:
 
     torch.cuda.reset_peak_memory_stats()
     grouping.group_pixels_cuda.launches = 0
+    grouping.group_pixels_cuda.copies = 0
     results, seconds = [], []
     for frame in frames[:NUM_FRAMES]:
         t0 = time.perf_counter()
@@ -433,9 +489,12 @@ def main() -> int:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     launches = grouping.group_pixels_cuda.launches
+    copies = grouping.group_pixels_cuda.copies
     peak = torch.cuda.max_memory_allocated()
-    print(f"grouping launches in the streamed run: {launches}")
+    print(f"grouping launches in the streamed run: {launches}; layout "
+          f"copies: {copies}")
     assert launches == NUM_FRAMES, launches
+    assert copies == 0, copies
 
     centers_per_frame = []
     for result in results:
@@ -483,12 +542,24 @@ def main() -> int:
         assert agree >= 0.999, key
 
     phase("5 timing")
+    by_valid = []
+    for n in VALID_COUNTS:
+        yx, valid, offsets = fixed_grouping_inputs(torch, device, n)
+        n_ms = device_ms(torch, lambda: grouping.group_pixels_cuda(
+            yx, valid, offsets), iters=100)
+        n_bound_ms, n_bound_by, moved, ops = grouping_bound(n)
+        by_valid.append({"valid_centers": n, "ms": n_ms,
+                         "bound_ms": n_bound_ms, "bound_by": n_bound_by})
+        print(f"group_pixels, fixed inputs 1x{HEIGHT}x{WIDTH}, {n} valid "
+              f"of {TOP_K}: kernel device time {n_ms * 1e3:.3f} us; bound "
+              f"{n_bound_ms * 1e3:.3f} us ({n_bound_by}: {moved} B, {ops} "
+              f"FP32 ops)")
+
     last = results[-1]
     centers = find_instance_centers_batch(last["center"][..., 0],
                                           top_k=TOP_K)
-    yx = centers.yx.contiguous()
-    valid = centers.valid.contiguous()
-    offsets = last["offset"].contiguous()
+    yx, valid, offsets = centers.yx, centers.valid, last["offset"]
+
     def kernel():
         return grouping.group_pixels_cuda(yx, valid, offsets)
 
@@ -501,18 +572,16 @@ def main() -> int:
     # the launch queue holds, so only its time per call is measured.
     plain_ms = call_ms(torch, plain, iters=10, warmup=3)
     num_valid = int(valid.sum())
-    pixels = HEIGHT * WIDTH
-    moved = pixels * (8 + 4) + TOP_K * (8 + 1)
-    ops = 5 * pixels * num_valid
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    print(f"group_pixels at 1x{HEIGHT}x{WIDTH}, {num_valid} valid of "
-          f"{TOP_K}: kernel device time {kernel_ms * 1e3:.3f} us, per "
-          f"call with the host {kernel_call_ms * 1e3:.3f} us; plain per "
-          f"call {plain_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.3f} us "
+    bound_ms, bound_by, moved, ops = grouping_bound(num_valid)
+    print(f"group_pixels, last streamed frame 1x{HEIGHT}x{WIDTH}, "
+          f"{num_valid} valid of {TOP_K}: kernel device time "
+          f"{kernel_ms * 1e3:.3f} us, per call with the host "
+          f"{kernel_call_ms * 1e3:.3f} us; plain per call "
+          f"{plain_ms * 1e3:.3f} us; bound {bound_ms * 1e3:.3f} us "
           f"({bound_by}: {moved} B, {ops} FP32 ops)")
+    timing_copies = grouping.group_pixels_cuda.copies - copies
+    print(f"layout copies in the timing runs: {timing_copies}")
+    assert timing_copies == 0, timing_copies
 
     phase("6 adaptation step")
     target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
@@ -534,6 +603,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     grouping.group_pixels_cuda.launches = 0
+    grouping.group_pixels_cuda.copies = 0
     step_seconds = []
     for i in range(ADAPT_STEPS):
         if i == ADAPT_STEPS - 1:
@@ -545,10 +615,12 @@ def main() -> int:
         step_seconds.append(time.perf_counter() - t0)
         check_adapt_outputs(torch, metrics, results, stats, HEIGHT, WIDTH)
     adapt_launches = grouping.group_pixels_cuda.launches
+    adapt_copies = grouping.group_pixels_cuda.copies
     adapt_peak = torch.cuda.max_memory_allocated()
     print(f"grouping launches in the {ADAPT_STEPS} timed steps: "
-          f"{adapt_launches}")
+          f"{adapt_launches}; layout copies: {adapt_copies}")
     assert adapt_launches == ADAPT_STEPS, adapt_launches
+    assert adapt_copies == 0, adapt_copies
     print("losses of the last step: " + ", ".join(
         f"{k} {float(v):.6g}" for k, v in metrics.items()))
     print(f"teacher eval of the last step: d_abs_rel "
@@ -619,12 +691,13 @@ def main() -> int:
         "replaces": "codeps_tpu/ops/pallas/grouping.py:30",
         "launches": launches + adapt_launches,
         "launches_by_path": {"serve": launches, "adapt": adapt_launches},
+        "copies_by_path": {"serve": copies, "adapt": adapt_copies},
         "exact": True, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
         "call_ms": kernel_call_ms,
-        "valid_centers": num_valid}]}))
+        "valid_centers": num_valid, "by_valid_centers": by_valid}]}))
     print(json.dumps({"adapt_step": {
         "ms": step_ms, "steps_per_s": 1e3 / step_ms,
         "peak_mib": adapt_peak / 2**20,

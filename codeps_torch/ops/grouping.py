@@ -10,10 +10,11 @@ never wins) and the running argmin starting at k = 0; an image with no
 valid center is all 0.
 
 ``group_pixels_cuda`` launches the hand-written kernel
-(``codeps_torch/csrc/grouping.cu``); ``group_pixels_plain`` is the same
-function in PyTorch, used for CPU tensors and as the kernel's check.
-``group_pixels`` picks by the device of its input: the plain version for
-CPU tensors, the kernel for CUDA tensors.
+(``codeps_torch/csrc/grouping.cu``), which reads the offsets as the two
+planes (dy, dx) of the instance head's NCHW output; ``group_pixels_plain``
+is the same function in PyTorch, used for CPU tensors and as the kernel's
+check. ``group_pixels`` picks by the device of its input: the plain
+version for CPU tensors, the kernel for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import functools
 
 import torch
 
-_MAX_CENTERS = 2048  # 21 bytes each in the kernel's 48 KB of shared memory
+_MAX_CENTERS = 2048  # 12 bytes each in the kernel's 48 KB of shared memory
 
 
 def group_pixels_plain(centers_yx: torch.Tensor, centers_valid: torch.Tensor,
@@ -73,11 +74,28 @@ def _launcher():
     return fn
 
 
+def offset_planes(offsets: torch.Tensor) -> torch.Tensor:
+    """The (B, 2, H, W) planes (dy, dx) of offsets (B, H, W, 2), as the
+    kernel reads them.
+
+    The instance head writes NCHW and the callers hand fusion its NHWC
+    view, so the permuted tensor is already contiguous and is returned as
+    it is. Any other layout (a truly NHWC tensor) is copied once, and the
+    copy is counted in ``group_pixels_cuda.copies``."""
+    planes = offsets.permute(0, 3, 1, 2)
+    if not planes.is_contiguous():
+        planes = planes.contiguous()
+        group_pixels_cuda.copies += 1
+    return planes
+
+
 def group_pixels_cuda(centers_yx: torch.Tensor, centers_valid: torch.Tensor,
                       offsets: torch.Tensor) -> torch.Tensor:
     """The kernel of ``csrc/grouping.cu`` on CUDA tensors of the shapes
-    ``group_pixels_plain`` takes: centers float32 (B, K, 2), validity bool
-    (B, K), offsets float32 (B, H, W, 2), all contiguous on one card."""
+    ``group_pixels_plain`` takes: centers float32 (B, K, 2) and validity
+    bool (B, K), both contiguous; offsets float32 (B, H, W, 2), read in
+    place when they are the NHWC view of an NCHW tensor (``offset_planes``),
+    all on one card."""
     if offsets.ndim != 4 or offsets.shape[-1] != 2:
         raise ValueError(f"offsets must be (B, H, W, 2), got {offsets.shape}")
     batch, height, width, _ = offsets.shape
@@ -91,30 +109,30 @@ def group_pixels_cuda(centers_yx: torch.Tensor, centers_valid: torch.Tensor,
                          f"got {tuple(centers_valid.shape)}")
     if k > _MAX_CENTERS:
         raise ValueError(f"at most {_MAX_CENTERS} centers, got {k}")
-    if offsets.device.type != "cuda":
-        raise ValueError(f"group_pixels_cuda takes CUDA tensors, got "
-                         f"offsets on {offsets.device}")
     for name, tensor, dtype in (("centers", centers_yx, torch.float32),
                                 ("valid", centers_valid, torch.bool),
                                 ("offsets", offsets, torch.float32)):
+        if tensor.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
+    if offsets.device.type != "cuda":
+        raise ValueError(f"group_pixels_cuda takes CUDA tensors, got "
+                         f"offsets on {offsets.device}")
+    for name, tensor in (("centers", centers_yx), ("valid", centers_valid)):
         if tensor.device != offsets.device:
             raise ValueError(f"{name} must lie on {offsets.device}, "
                              f"got {tensor.device}")
-        if tensor.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {tensor.dtype}")
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if offsets.data_ptr() % 8 or centers_yx.data_ptr() % 8:
-        raise ValueError("centers and offsets must be 8-byte aligned")
 
     out = torch.empty((batch, height, width), dtype=torch.int32,
                       device=offsets.device)
     if out.numel() == 0:
         return out
+    planes = offset_planes(offsets)
     with torch.cuda.device(offsets.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _launcher()(centers_yx.data_ptr(), centers_valid.data_ptr(),
-                          offsets.data_ptr(), out.data_ptr(), batch, k,
+                          planes.data_ptr(), out.data_ptr(), batch, k,
                           height, width, stream)
     if err != 0:
         raise RuntimeError(f"group_pixels kernel launch failed: CUDA error "
@@ -124,6 +142,7 @@ def group_pixels_cuda(centers_yx: torch.Tensor, centers_valid: torch.Tensor,
 
 
 group_pixels_cuda.launches = 0
+group_pixels_cuda.copies = 0
 
 
 def group_pixels(centers_yx: torch.Tensor, centers_valid: torch.Tensor,
@@ -140,6 +159,5 @@ def group_pixels(centers_yx: torch.Tensor, centers_valid: torch.Tensor,
         out = group_pixels_plain(centers_yx, centers_valid, offsets)
     else:
         out = group_pixels_cuda(centers_yx.contiguous(),
-                                centers_valid.contiguous(),
-                                offsets.contiguous())
+                                centers_valid.contiguous(), offsets)
     return out[0] if single else out

@@ -1,7 +1,8 @@
-"""The port stands alone: ``codeps_torch`` and ``chip_smoke.py`` import no
-JAX and nothing of ``codeps_tpu``, import no YAML/PIL/cv2 at import time
-(the card machine may lack them), and their entry points never fall back
-to the CPU on their own."""
+"""The port stands alone: ``codeps_torch`` and the card scripts
+(``chip_smoke.py``, ``profile_adapt_step.py``, ``time_grouping.py``)
+import no JAX and nothing of ``codeps_tpu``, import no YAML/PIL/cv2 at
+import time (the card machine may lack them), and their entry points
+never fall back to the CPU on their own."""
 
 import copy
 import re
@@ -29,7 +30,7 @@ def test_every_module_imports_without_jax_or_codeps_tpu():
             codeps_torch.__path__, "codeps_torch.")]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke, profile_adapt_step
+        import chip_smoke, profile_adapt_step, time_grouping
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -48,7 +49,9 @@ def test_source_scan_finds_no_jax_or_codeps_tpu_import():
     # the kernel build directory holds outputs, not sources
     files = sorted(path for path in (REPO / "codeps_torch").rglob("*.py")
                    if "_build" not in path.parts)
-    files += [REPO / "chip_smoke.py", REPO / "profile_adapt_step.py"]
+    files += [REPO / name for name in ("chip_smoke.py",
+                                       "profile_adapt_step.py",
+                                       "time_grouping.py")]
     assert len(files) > 20
     offenders = [f"{path.relative_to(REPO)}: {match.group(0).strip()}"
                  for path in files
