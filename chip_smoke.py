@@ -45,7 +45,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
     step latency, steps/s and peak memory. Then one step at 64x192
     (target) and 64x128 (source) from the same weights, batch and
     automask noise on the card and on the CPU, whose losses must agree;
- 7. the ``kernels`` line (with the per-n times and bounds and the layout
+ 7. adaptation stream: the port's ``AdaptationRunner`` streams a
+    KITTI-360-like target sequence made in memory from the seed (frames,
+    semantic/instance GT and sparse depth at 384x1408, STREAM_FRAMES
+    frames after the 0.7 adaptation split) with a Cityscapes-like source
+    of SOURCE_IMAGES images at 512x1024 through the published config
+    (2 source and 2 target replay samples, ``[cut_mixup, cut_mixup]``
+    with the camera warp, diversity buffers of 300 at threshold 0.95,
+    EMA 0.99 on the semantic head); the readers' code runs on the
+    in-memory frames (label decoding, center/offset GT, histogram
+    matching, the numpy color jitter), only file decoding is bypassed.
+    The grouping kernel must launch twice a frame (teacher eval and GT
+    map) with no layout copy and equal its plain version on every call;
+    every meter must be finite. Prints the frame latency (host clock,
+    median after 2 warm-up frames, and its range), frames/s, the host
+    time of ``ReplayBuffer.__getitem__`` and of ``buffer.add``, the peak
+    memory and the final PQ, mIoU and abs_rel; times the published
+    rare-class source sampling on its own. Then a 3-frame stream at
+    64x192 (source 64x128) with ResNet-18 runs on the card and on the
+    CPU from the same weights, samples and automask noise, and their
+    PQ, mIoU and abs_rel must agree within ``scripts/parity_e2e.py``'s
+    tolerances;
+ 8. the ``kernels`` line (with the per-n times and bounds and the layout
     copies on each path), then the last line
     ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +126,16 @@ KITTI_360_CAMERA = (552.554261, 552.554261 * 384 / 376, 682.049453,
                     238.769549 * 384 / 376)
 CITYSCAPES_CAMERA = (2262.52 / 2, 2265.3017905988554 / 2, 1096.98 / 2,
                      513.137 / 2)
+# Adaptation stream (phase 7): frames after the 0.7 adaptation split of a
+# target sequence of STREAM_FRAMES / 0.7, source images, warm-up frames.
+STREAM_FRAMES = 12
+SOURCE_IMAGES = 8
+WARMUP_FRAMES = 2
+# full-size images of the two datasets, (W, H)
+KITTI_360_FULL = (1408, 376)
+CITYSCAPES_FULL = (2048, 1024)
+# scripts/parity_e2e.py:52-54, PQ as a fraction
+PQ_TOL, MIOU_TOL, ABS_REL_TOL = 0.005, 0.005, 0.005
 
 
 def phase(name):
@@ -295,20 +326,6 @@ def adapt_config(target_size, source_size):
     return cfg
 
 
-def adapt_modules(cfg):
-    """(frozen, EMA-filtered) module names from the adapt flags, as
-    scripts/adapt.py:124-145 derives them."""
-    flags = cfg.adapt.model
-    frozen = [name for name, live in (
-        ("backbone_po_depth", flags.backbone_po_depth),
-        ("backbone_pose_sflow", flags.backbone_pose_sflow),
-        ("depth_head", flags.depth), ("pose_head", flags.pose),
-        ("semantic_head", flags.semantic),
-        ("instance_head", flags.instance)) if not live]
-    ema = ["semantic_head"] if cfg.adapt.ema.semantic else []
-    return tuple(frozen), tuple(ema)
-
-
 def adapt_batch(rng, target_size, source_size):
     """One step's batch in the step's layout (uint8 frames, NHWC)."""
     import numpy as np
@@ -355,8 +372,9 @@ def adapt_batch(rng, target_size, source_size):
 def build_adapt(torch, modules, cfg, device):
     """(AdaptState on ``device``, the step) for ``modules``."""
     from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    from codeps_torch.tasks.adapt_loop import adapt_module_lists
     from codeps_torch.tasks.state import make_adapt_state
-    frozen, ema = adapt_modules(cfg)
+    frozen, ema = adapt_module_lists(cfg, modules.module_names())
     state = make_adapt_state(modules, cfg.train.optimizer.learning_rate,
                              ema_modules=ema, frozen_modules=frozen,
                              ema_alpha=cfg.adapt.ema.alpha, seed=SEED,
@@ -400,6 +418,192 @@ def check_adapt_outputs(torch, metrics, results, stats, height, width):
     conf_sum = int(stats["sem_conf"].sum())
     assert conf_sum == height * width, conf_sum
     check_outputs(torch, results, 1, height, width)
+
+
+def stream_config(target_size, source_size, layers=101):
+    """The adapt config with the rest of cfg/adapt_cityscapes_kitti_360.yaml
+    set in code (the replay sampler and buffers, the cut-mixup grid, the
+    adaptation split) and frames sent to the card as uint8."""
+    cfg = adapt_config(target_size, source_size)
+    cfg.model.po_depth_net.params.nof_layers = layers
+    cfg.dataset.path = cfg.adapt.source_dataset.path = "(in memory)"
+    cfg.adapt.source_dataset.name = "cityscapes"
+    # gen_config copies these dataset settings to the source
+    for key in ("center_heatmap_sigma", "return_only_rgb",
+                "small_instance_area_full_res", "small_instance_weight",
+                "remove_classes", "label_mode", "augmentation",
+                "normalization"):
+        cfg.adapt.source_dataset[key] = cfg.dataset[key]
+    cfg.adapt.target_dataset_adapt_ratio = 0.7
+    cfg.adapt.replay_sampler.seed = 42
+    cfg.adapt.replay_buffer.seed = 20
+    cfg.adapt.replay_buffer.source_size = 300
+    cfg.adapt.replay_buffer.target_size = 300
+    cfg.adapt.replay_buffer.maximize_diversity = True
+    cfg.adapt.replay_buffer.similarity_threshold = 0.95
+    cfg.adapt.mixup.general.geom_augment = True
+    cfg.adapt.mixup.cut_mix.nof_hor_splits = 4
+    cfg.adapt.mixup.cut_mix.nof_vert_splits = 2
+    cfg.adapt.mixup.cut_mix.nof_segments = 2
+    # frames travel as uint8 and are normalized on the card, with the
+    # host's arithmetic (a transport setting: the model sees the same
+    # floats, tests/test_torch_data.py)
+    cfg.dataset.normalization.uint8_transfer = True
+    cfg.adapt.source_dataset.normalization = cfg.dataset.normalization
+    return cfg
+
+
+def scaled_camera(camera, full_size, size):
+    """Intrinsics ``camera`` of an image of ``full_size`` (H, W) at
+    ``size``."""
+    sy, sx = size[0] / full_size[0], size[1] / full_size[1]
+    return (camera[0] * sx, camera[1] * sy, camera[2] * sx, camera[3] * sy)
+
+
+def street_labels(rng, height, width, things):
+    """Raw label ids (uint8) and instance ids (uint16) of a street-like
+    frame: stuff bands (sky, building, vegetation, sidewalk, road) and
+    ``things`` rectangles of people and cars, both classes always
+    present."""
+    import numpy as np
+    semantic = np.empty((height, width), np.uint8)
+    for (top, bottom), raw in zip(((0, 0.2), (0.2, 0.45), (0.45, 0.55),
+                                   (0.55, 0.7), (0.7, 1.0)),
+                                  (23, 11, 21, 8, 7)):
+        semantic[int(top * height):int(bottom * height)] = raw
+    instance = semantic.astype(np.uint16) * 1000
+    for i in range(things):
+        raw = (24, 26)[i % 2]
+        h = int(rng.integers(height // 10, height // 3))
+        w = int(rng.integers(width // 40, width // 8))
+        y = int(rng.integers(height // 3, height - h))
+        x = int(rng.integers(0, width - w))
+        semantic[y:y + h, x:x + w] = raw
+        instance[y:y + h, x:x + w] = raw * 1000 + i + 1
+    return semantic, instance
+
+
+def stream_datasets(cfg, frames, source_images, seed):
+    """(target, source): the port's KITTI-360 and Cityscapes readers on
+    frames made in memory from ``seed`` at the config's feed sizes (their
+    ``_read`` replaced; everything after the file decoding is the
+    readers' own). The target has ``frames`` / 0.7 frames so that
+    ``frames`` remain after the adaptation split; its depth GT is sparse,
+    as projected LiDAR is."""
+    import numpy as np
+    from codeps_torch.data.cityscapes import Cityscapes
+    from codeps_torch.data.dataset import Dataset, class_distribution
+    from codeps_torch.data.kitti_360 import Kitti360
+    rng = np.random.default_rng(seed)
+
+    def sequence(n, height, width):
+        images = rng.integers(0, 256, (n + 2, height, width, 3),
+                              dtype=np.uint8)
+        labels = [street_labels(rng, height, width, 6) for _ in range(n)]
+        return images, labels
+
+    class MemoryKitti360(Kitti360):
+        def __init__(self):
+            Dataset.__init__(self, "kitti_360", ["sequence"], "sequence",
+                             cfg.dataset, return_depth=True)
+            self.sequence_reference_mode = "rgb"
+            self.semantic_seq_mode_image_skipped = []
+            self.sequences = list(cfg.dataset.sequences)
+            height, width = self.image_size
+            n = int(np.ceil(frames / 0.7))
+            self.images, self.labels = sequence(n, height, width)
+            self.depths = [np.where(rng.random((height, width)) < 0.05,
+                                    rng.uniform(2.0, 79.0, (height, width)),
+                                    0.0).astype(np.float32)
+                           for _ in range(n)]
+            self.frame_paths = [{"frame": i} for i in range(n)]
+            self.camera_model = np.asarray(scaled_camera(
+                KITTI_360_CAMERA, (HEIGHT, WIDTH), self.image_size),
+                np.float32)
+
+        def _read(self, index, with_labels):
+            n = self.frame_paths[index]["frame"]
+            out = {"rgb": {0: self.images[n + 1], -1: self.images[n],
+                           1: self.images[n + 2]},
+                   "image_size": KITTI_360_FULL}
+            if with_labels:
+                out["semantic"], out["instance"] = self.labels[n]
+                out["depth"] = self.depths[n]
+            return out
+
+    class MemoryCityscapes(Cityscapes):
+        def __init__(self):
+            Dataset.__init__(self, "cityscapes", ["train"], "train",
+                             cfg.adapt.source_dataset)
+            height, width = self.image_size
+            self.images, self.labels = sequence(source_images, height,
+                                                width)
+            self.frame_paths = [{"frame": i} for i in range(source_images)]
+            full = CITYSCAPES_FULL[::-1]
+            fx, fy, cx, cy = scaled_camera(CITYSCAPES_CAMERA,
+                                           (SOURCE_HEIGHT, SOURCE_WIDTH),
+                                           full)
+            self.camera = {"intrinsic": {"fx": fx, "fy": fy, "u0": cx,
+                                         "v0": cy},
+                           "extrinsic": {"baseline": 0.209313}}
+            self.distribution = None
+
+        def _read(self, index, with_labels):
+            n = self.frame_paths[index]["frame"]
+            out = {"rgb": {0: self.images[n + 1], -1: self.images[n],
+                           1: self.images[n + 2]},
+                   "image_size": CITYSCAPES_FULL, "camera": self.camera}
+            if with_labels:
+                out["semantic"], out["instance"] = self.labels[n]
+            return out
+
+        def load_class_distribution(self):
+            # counted here, where the readers load the pickled one
+            if self.distribution is None:
+                self.distribution = class_distribution(self)
+            return self.distribution
+
+    return MemoryKitti360(), MemoryCityscapes()
+
+
+def build_stream(cfg, modules, device, seed, noise=None):
+    """(runner, buffer) of the port on in-memory data: the whole source
+    becomes the source buffer."""
+    import random
+    from codeps_torch.data.replay_buffer import ReplayBuffer
+    from codeps_torch.tasks.adapt_loop import AdaptationRunner
+    target, source = stream_datasets(cfg, STREAM_FRAMES, SOURCE_IMAGES,
+                                     seed)
+    buffer = ReplayBuffer(target, cfg.adapt, "train",
+                          rng=random.Random(seed))
+    buffer.initialize_source_buffer(source, None)
+    runner = AdaptationRunner(cfg, modules, buffer, seed=seed, device=device,
+                              verbose=False, noise=noise)
+    return runner, buffer
+
+
+def numpy_noise(torch, seed, device):
+    """Automask noise from a numpy generator: the same normals, in the same
+    order, on every device."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def noise(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+    return noise
+
+
+def meter_values(meters):
+    """{name: value} of the scalar meters that were updated."""
+    import numpy as np
+    out = {}
+    for kind in ("losses", "metrics"):
+        for name, meter in meters[kind].items():
+            count = getattr(meter, "count", 1)
+            if count and np.ndim(meter.value) == 0:
+                out[name] = float(meter.value)
+    return out
 
 
 def main() -> int:
@@ -684,15 +888,142 @@ def main() -> int:
         ref = outs["cpu"][2][key]
         assert abs(outs["card"][2][key] - ref) <= REL_TOL * abs(ref), key
 
-    phase("7 result")
+    phase("7 adaptation stream")
+    from codeps_torch.data.dataset import class_distribution
+    from codeps_torch.data.replay_buffer import rare_class_sample
+    from codeps_torch.ops import panoptic as panoptic_ops
+    cfg = stream_config(target_size, source_size)
+    runner, buffer = build_stream(cfg, modules, device, SEED)
+    frames = len(buffer)
+    print(f"stream: {frames} frames of {HEIGHT}x{WIDTH} after the "
+          f"adaptation split, source {len(buffer.source_data)} images of "
+          f"{SOURCE_HEIGHT}x{SOURCE_WIDTH}; frozen "
+          f"{list(runner.state.frozen_modules)}, EMA "
+          f"{list(runner.state.ema_modules)}")
+    # every grouping call of the stream is kept and checked after it
+    grouped = []
+    group_pixels = panoptic_ops.group_pixels
+
+    def recording(yx, valid, offsets):
+        out = group_pixels(yx, valid, offsets)
+        grouped.append((yx.clone(), valid.clone(), offsets.clone(), out))
+        return out
+
+    panoptic_ops.group_pixels = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    grouping.group_pixels_cuda.launches = 0
+    grouping.group_pixels_cuda.copies = 0
+    t0 = time.perf_counter()
+    try:
+        meters = runner.run()
+        torch.cuda.synchronize()
+    finally:
+        panoptic_ops.group_pixels = group_pixels
+    stream_seconds = time.perf_counter() - t0
+    stream_launches = grouping.group_pixels_cuda.launches
+    stream_copies = grouping.group_pixels_cuda.copies
+    stream_peak = torch.cuda.max_memory_allocated()
+    print(f"grouping launches in the stream: {stream_launches} in {frames} "
+          f"frames; layout copies: {stream_copies}")
+    assert stream_launches == 2 * frames, stream_launches
+    assert stream_copies == 0, stream_copies
+    assert runner.state.step == frames, runner.state.step
+    stream_err = 0
+    for yx, valid, offsets, out in grouped:
+        ref = grouping.group_pixels_plain(yx, valid, offsets)
+        stream_err = max(stream_err, int((out.long() - ref.long()).abs()
+                                         .max()))
+        assert torch.equal(out, ref), "kernel != plain in the stream"
+    print(f"kernel == plain on all {len(grouped)} grouping calls of the "
+          f"stream; valid centers per call: "
+          f"{[int(v.sum()) for _, v, _, _ in grouped]}")
+    del grouped
+    values = meter_values(meters)
+    bad = [k for k, v in values.items() if not np.isfinite(v)]
+    assert not bad, f"meters not finite: {bad}"
+    latencies = runner.step_times[WARMUP_FRAMES:]
+    frame_ms = statistics.median(latencies) * 1e3
+    getitem_ms = [t * 1e3 for t in runner.host_times["getitem"]]
+    add_ms = [t * 1e3 for t in runner.host_times["add"]]
+    print(f"frame latency (host clock, median of {len(latencies)} after "
+          f"{WARMUP_FRAMES} warm-up frames): {frame_ms:.3f} ms, range "
+          f"{min(latencies) * 1e3:.3f}-{max(latencies) * 1e3:.3f} ms; all: "
+          f"{[round(t * 1e3, 3) for t in runner.step_times]}")
+    print(f"frames per second: {1e3 / frame_ms:.3f} (median); whole stream "
+          f"{stream_seconds:.3f} s for {frames} frames")
+    print(f"ReplayBuffer.__getitem__ in the stream's worker thread: median "
+          f"{statistics.median(getitem_ms):.3f} ms a frame; all "
+          f"{[round(t, 3) for t in getitem_ms]}")
+    print("main thread per frame, median ms: " + ", ".join(
+        f"{name} {statistics.median(t[WARMUP_FRAMES:]) * 1e3:.3f}"
+        for name, t in runner.frame_phases.items()))
+    print(f"buffer.add: median {statistics.median(add_ms):.3f} ms; all "
+          f"{[round(t, 3) for t in add_ms]}; buffer holds "
+          f"{buffer.sim_index.ntotal} of {frames} frames")
+    print(f"stream peak device memory: {stream_peak / 2**20:.1f} MiB")
+    print("final meters: " + ", ".join(
+        f"{k} {values[k]:.6g}" for k in ("p_pq", "p_sq", "p_rq", "sem_miou",
+                                         "sem_miou_pixels", "d_abs_rel",
+                                         "d_a1")))
+    print("mean losses: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in values.items()
+        if k in meters["losses"]))
+    # host data preparation on its own, nothing else running
+    alone_ms = []
+    for index in range(3):
+        t0 = time.perf_counter()
+        buffer[index]
+        alone_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"ReplayBuffer.__getitem__ on its own: "
+          f"{[round(t, 3) for t in alone_ms]} ms")
+    source = buffer.source_data
+    t0 = time.perf_counter()
+    distribution = class_distribution(source)
+    count_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    drawn = rare_class_sample(distribution, SOURCE_IMAGES // 2,
+                              cfg.adapt.replay_buffer.seed)
+    draw_s = time.perf_counter() - t0
+    print(f"rare-class source sampling: class distribution of "
+          f"{len(source)} images {count_s * 1e3:.3f} ms, {len(drawn)} images "
+          f"drawn {draw_s * 1e3:.3f} ms: {sorted(int(i) for i in drawn)}")
+    del runner, buffer, meters
+
+    small_target, small_source = (64, 192), (64, 128)
+    small_cfg = stream_config(small_target, small_source, layers=18)
+    cpu_modules = init_params(build_modules(
+        small_cfg, NUM_CLASSES, device="cpu"), seed=SEED, device="cpu")
+    calibrate_batch_norm(torch, cpu_modules, rng.integers(
+        0, 256, (1, *small_target, 3), dtype=np.uint8))
+    card_modules = copy.deepcopy(cpu_modules)
+    small = {}
+    for name, mods, dev in (("card", card_modules, device),
+                            ("cpu", cpu_modules, torch.device("cpu"))):
+        small_runner, _ = build_stream(small_cfg, mods, dev, SEED,
+                                       noise=numpy_noise(torch, SEED, dev))
+        small[name] = meter_values(small_runner.run(max_frames=3))
+        assert small_runner.state.step == 3
+    for key, tol in (("p_pq", PQ_TOL), ("sem_miou", MIOU_TOL),
+                     ("d_abs_rel", ABS_REL_TOL)):
+        err = abs(small["card"][key] - small["cpu"][key])
+        print(f"64x192 stream card vs CPU {key}: {small['card'][key]:.6g} vs "
+              f"{small['cpu'][key]:.6g}, |diff| {err:.3g} (bound {tol})")
+        assert err <= tol, key
+    for key, ref in small["cpu"].items():
+        assert key in small["card"], key
+
+    phase("8 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
         "replaces": "codeps_tpu/ops/pallas/grouping.py:30",
-        "launches": launches + adapt_launches,
-        "launches_by_path": {"serve": launches, "adapt": adapt_launches},
-        "copies_by_path": {"serve": copies, "adapt": adapt_copies},
-        "exact": True, "max_abs_err": max_err,
+        "launches": launches + adapt_launches + stream_launches,
+        "launches_by_path": {"serve": launches, "adapt": adapt_launches,
+                             "stream": stream_launches},
+        "copies_by_path": {"serve": copies, "adapt": adapt_copies,
+                           "stream": stream_copies},
+        "exact": True, "max_abs_err": max(max_err, stream_err),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
@@ -702,6 +1033,13 @@ def main() -> int:
         "ms": step_ms, "steps_per_s": 1e3 / step_ms,
         "peak_mib": adapt_peak / 2**20,
         "all_ms": [t * 1e3 for t in step_seconds]}}))
+    print(json.dumps({"adapt_stream": {
+        "frames": frames, "frame_ms": frame_ms, "frames_per_s":
+        1e3 / frame_ms, "peak_mib": stream_peak / 2**20,
+        "getitem_ms": statistics.median(getitem_ms),
+        "add_ms": statistics.median(add_ms),
+        "p_pq": values["p_pq"], "sem_miou": values["sem_miou"],
+        "d_abs_rel": values["d_abs_rel"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -5,11 +5,17 @@ it, imports nothing of it and no JAX, and keeps its module layout so each
 module's counterpart is found by name:
 
   config/   config tree + YAML overrides (own copy; YAML read lazily)
-  data/     label taxonomies (own copy)
-  ops/      normalize, resize, top-k threshold, panoptic fusion and the
-            pixel-grouping kernel (csrc/grouping.cu, built at first use)
-  models/   ResNet encoder, depth/semantic/instance heads, the facade
-  tasks/    forward helpers
+  data/     label taxonomies, numpy preprocessing, the KITTI-360 and
+            Cityscapes readers, the replay buffer (PIL/cv2 read files only)
+  ops/      normalize, resize, top-k threshold, grid sampling, panoptic
+            fusion and the pixel-grouping kernel (csrc/grouping.cu, built
+            at first use)
+  geometry/ camera, pose, view-synthesis warp
+  losses/   photometric, smoothness, semantic, instance
+  models/   ResNet encoders, depth/pose/semantic/instance heads, the facade
+  evaluation/ depth, semantic and panoptic metrics, meters
+  tasks/    forward helpers, optimizer, state, the adaptation step and the
+            streaming runner
   io/       weight bridge from the JAX trees, visualizations
   scripts/  ``python -m codeps_torch.scripts.infer``
 

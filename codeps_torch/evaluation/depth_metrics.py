@@ -56,8 +56,19 @@ def compute_depth_metrics(depth_gt: torch.Tensor, depth_pred: torch.Tensor,
     def masked_mean(x):
         return torch.where(mask, x, 0.0).sum(dim=1) / count
 
+    stats = _depth_stats(gt, pred, masked_mean)
+    valid_frame = mask.sum(dim=1) > 0
+    n_valid = valid_frame.sum().clamp(min=1)
+    return {f"d_{key}": torch.where(
+        valid_frame.any(),
+        torch.where(valid_frame, value, 0.0).sum() / n_valid,
+        torch.nan) for key, value in stats.items()}
+
+
+def _depth_stats(gt, pred, masked_mean) -> Dict[str, torch.Tensor]:
+    """The seven Monodepth2 statistics over the masked pixels."""
     thresh = torch.maximum(gt / pred, pred / gt)
-    stats = {
+    return {
         "a1": masked_mean((thresh < 1.25).float()),
         "a2": masked_mean((thresh < 1.25 ** 2).float()),
         "a3": masked_mean((thresh < 1.25 ** 3).float()),
@@ -67,9 +78,43 @@ def compute_depth_metrics(depth_gt: torch.Tensor, depth_pred: torch.Tensor,
         "abs_rel": masked_mean(torch.abs(gt - pred) / gt),
         "sq_rel": masked_mean((gt - pred) ** 2 / gt),
     }
-    valid_frame = mask.sum(dim=1) > 0
-    n_valid = valid_frame.sum().clamp(min=1)
-    return {f"d_{key}": torch.where(
-        valid_frame.any(),
-        torch.where(valid_frame, value, 0.0).sum() / n_valid,
-        torch.nan) for key, value in stats.items()}
+
+
+def compute_depth_metrics_per_class(depth_gt: torch.Tensor,
+                                    depth_pred: torch.Tensor,
+                                    semantic_gt: torch.Tensor,
+                                    num_classes: int,
+                                    use_gt_scale: bool = True,
+                                    depth_ranges: Tuple[float, float]
+                                    = (0.1, 80.0)
+                                    ) -> Dict[str, torch.Tensor]:
+    """Stats of each semantic class's pixels with GT, pooled over the
+    batch: keys ``d_<metric>_c<class>``, NaN for a class absent from the
+    batch (``depth_metrics.py:122-169`` of the JAX package). All classes
+    are computed at once, one row per class, so nothing waits for the
+    device."""
+    min_depth, max_depth = depth_ranges
+    gt_flat = depth_gt.reshape(-1)
+    pred_flat = depth_pred.reshape(-1)
+    classes = torch.arange(num_classes, device=gt_flat.device)
+    mask = (semantic_gt.reshape(1, -1) == classes[:, None]) \
+        & (gt_flat > 0)[None]                          # (C, N)
+    count = mask.sum(dim=1)
+    pred_c = pred_flat[None].expand(num_classes, -1)
+    if use_gt_scale:
+        ratio = (_masked_median(gt_flat[None].expand(num_classes, -1), mask)
+                 / _masked_median(pred_c, mask))
+        pred_c = pred_c * ratio[:, None]
+    gt_c = torch.clamp(gt_flat, min_depth, max_depth)[None]
+    pred_c = torch.clamp(pred_c, min_depth, max_depth)
+    safe = count.clamp(min=1)
+
+    def masked_mean(x):
+        return torch.where(mask, x, 0.0).sum(dim=1) / safe
+
+    stats = _depth_stats(gt_c, pred_c, masked_mean)
+    empty = count == 0
+    return {f"d_{key}_c{cls}": value[cls]
+            for key, value in ((k, torch.where(empty, torch.nan, v))
+                               for k, v in stats.items())
+            for cls in range(num_classes)}

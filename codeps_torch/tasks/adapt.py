@@ -1,18 +1,19 @@
 """The online-adaptation step: teacher eval, multi-domain losses, Adam,
 EMA blend and the non-moving-frame skip.
 
-Counterpart of ``codeps_tpu/tasks/adapt.py:53-919`` for composed mixup
-samples (the JAX ``fused_mixup=False`` layout) without a flow head. One
-call of the step does, for one streamed frame:
+Counterpart of ``codeps_tpu/tasks/adapt.py:53-919`` without a flow head.
+One call of the step does, for one streamed frame:
 
   1. the multi-domain forward with autograd through the live modules
      only: depth and pose losses on the source triplets and on the target
      triplet batched with target replay, the top-k CE on source replay and
      on each mixup strategy group, and the frozen instance head's source
-     losses;
+     losses; with ``fused_mixup`` the mixup samples are composed here
+     from their raw materials (teacher pseudo-labels, the camera warp,
+     cut cells and class masks);
   2. backward; the teacher eval of the frame on the weights from before
      the update (panoptic fusion with the grouping kernel, depth metrics,
-     confusion matrix);
+     per-class depth metrics when asked, confusion matrix);
   3. the skip ring's push, Adam, and the per-module EMA blend.
 
 Batch layout (NHWC, frame axis order [t, t-1, t+1]; numpy or tensors,
@@ -22,7 +23,13 @@ uint8 frames are normalized here, floats are taken as normalized):
           center (Ns, Hs, Ws, 1), offset (Ns, Hs, Ws, 2), optional
           thing_mask
   target_replay (with ``has_replay``): frames (Nr, 3, Ht, Wt, 3), camera
-  mixup (with ``num_mixup``): rgb (Nm, Hs, Ws, 3), semantic (Nm, Hs, Ws)
+  mixup (with ``num_mixup``): composed samples rgb (Nm, Hs, Ws, 3),
+          semantic (Nm, Hs, Ws); or with ``fused_mixup`` the raw
+          materials rgb_src (Nm, Hs, Ws, 3), semantic_src (Nm, Hs, Ws),
+          rgb_tgt (Nm, Ht, Wt, 3), prewarp (``mixup_prep.c2c_prewarp``,
+          with ``geom_augment``), cut_cells (N_cut, nof_segments) int and
+          class_replace (N_class, 256) bool, rows in the order of
+          ``mixup_groups``
   eval_gt (optional): depth_gt, semantic, semantic_eval
   do_ema (optional): False keeps the teacher untouched for this step.
 """
@@ -35,13 +42,15 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from codeps_torch.evaluation.depth_metrics import compute_depth_metrics
+from codeps_torch.evaluation.depth_metrics import (
+    compute_depth_metrics, compute_depth_metrics_per_class)
 from codeps_torch.evaluation.semantic_metrics import compute_confusion_matrix
 from codeps_torch.losses import (binary_mask_loss, center_loss,
                                  edge_aware_smoothness_loss,
                                  ema_consistency_loss, offset_loss,
                                  reconstruction_loss, semantic_loss)
 from codeps_torch.models.codeps_net import MODULE_NAMES
+from codeps_torch.ops.grid_sample import grid_sample_pair_pre
 from codeps_torch.ops.normalize import maybe_normalize
 from codeps_torch.ops.panoptic import panoptic_fusion_batch
 from codeps_torch.tasks.forward import apply_encoder, depth_forward
@@ -49,7 +58,8 @@ from codeps_torch.tasks.optim import set_learning_rate
 from codeps_torch.tasks.state import DIST_BUFFER_LEN, AdaptState
 
 __all__ = ["DIST_BUFFER_LEN", "batch_to_device", "build_eval_forward",
-           "skip_decision", "push_ring_buffer", "make_adapt_step"]
+           "make_eval_step", "make_gt_panoptic_step", "skip_decision",
+           "push_ring_buffer", "compose_mixup", "make_adapt_step"]
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -59,10 +69,12 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------- teacher
 
 def build_eval_forward(cfg, thing_list, num_classes: int,
-                       eval_ignore_classes=()):
+                       eval_ignore_classes=(),
+                       class_wise_depth_stats: bool = False):
     """The teacher's evaluation of a target frame: predictions, panoptic
-    fusion and the metric ingredients (``adapt.py:53-132``; the per-class
-    depth stats come with the runner).
+    fusion and the metric ingredients (``adapt.py:53-132``);
+    ``class_wise_depth_stats`` adds the per-class depth stats
+    (``d_<metric>_c<class>``, NaN for a class absent from the GT).
 
     Returns ``eval_step(modules, batch, feats=None, sem_probs=None,
     depth=None) -> (results, stats)``. ``modules`` has the attributes of
@@ -95,6 +107,12 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
                 stats.update(compute_depth_metrics(
                     batch["depth_gt"], results["depth"], use_gt_scale,
                     depth_ranges))
+                if class_wise_depth_stats \
+                        and batch.get("semantic") is not None:
+                    stats.update(compute_depth_metrics_per_class(
+                        batch["depth_gt"], results["depth"],
+                        batch["semantic"], num_classes, use_gt_scale,
+                        depth_ranges))
         if modules.semantic_head is not None:
             if sem_probs is None:
                 sem_probs = modules.semantic_head(feats)
@@ -124,6 +142,39 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
     return eval_step
 
 
+def make_eval_step(cfg, thing_list, num_classes: int,
+                   eval_ignore_classes=(),
+                   class_wise_depth_stats: bool = False):
+    """The standalone teacher eval (``adapt.py:135``, the runner's
+    eval-only mode): ``eval_step(modules, batch) -> (results, stats)``
+    with the batch moved to the modules' device."""
+    forward = build_eval_forward(cfg, thing_list, num_classes,
+                                 eval_ignore_classes,
+                                 class_wise_depth_stats)
+
+    def eval_step(modules, batch):
+        device = next(modules.parameters()).device
+        return forward(modules, batch_to_device(batch, device))
+
+    return eval_step
+
+
+def make_gt_panoptic_step(thing_list, num_classes: int):
+    """Panoptic ids of the ground truth (``adapt.py:175``): integer labels
+    (B, H, W), center heatmaps (B, H, W, 1) and offsets (B, H, W, 2) ->
+    (B, H, W) int32, grouped by the same kernel as the teacher's maps."""
+    thing_list = tuple(thing_list)
+
+    @torch.no_grad()
+    def gt_panoptic(semantic_gt, center_gt, offset_gt):
+        pan, _, _ = panoptic_fusion_batch(semantic_gt, center_gt, offset_gt,
+                                          thing_list,
+                                          num_classes=num_classes)
+        return pan
+
+    return gt_panoptic
+
+
 # ------------------------------------------------------------- skip ring
 
 def skip_decision(dist_buffer: torch.Tensor, dist_count: torch.Tensor,
@@ -147,6 +198,64 @@ def push_ring_buffer(dist_buffer: torch.Tensor, dist_count: torch.Tensor,
             torch.where(skip, dist_count,
                         torch.clamp(dist_count + 1, max=capacity)),
             torch.where(skip, dist_head, (dist_head + 1) % capacity))
+
+
+# ------------------------------------------------------------------ mixup
+
+@torch.no_grad()
+def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
+                  geom_augment: bool, mean, std):
+    """The fused mixup samples of a batch's raw materials
+    (``adapt.py:359-443``): (rgb (Nm, Hs, Ws, 3) normalized, semantic
+    (Nm, Hs, Ws) int32).
+
+    The teacher labels ``rgb_tgt`` (argmax of its semantic head), the
+    camera warp carries image and labels into the source frame (with
+    ``geom_augment``), and each row of ``mixup_groups`` takes the target
+    where its mask holds: cut cells ``cut_cells`` of the
+    ``cut_cfg`` grid, each ending one pixel short of the next cell, or the
+    source pixels whose class ``class_replace`` marks.
+    """
+    rgb_tgt = maybe_normalize(mixup["rgb_tgt"], mean, std)
+    rgb_src = maybe_normalize(mixup["rgb_src"], mean, std)
+    semantic_src = mixup["semantic_src"].long()
+    sem_pred = teacher.semantic_head(apply_encoder(
+        teacher.backbone_po_depth, rgb_tgt)).argmax(dim=1)
+    if geom_augment:
+        rgb_w, sem_w = grid_sample_pair_pre(rgb_tgt, sem_pred[..., None],
+                                            mixup["prewarp"])
+        sem_w = sem_w[..., 0]
+    else:
+        rgb_w, sem_w = rgb_tgt, sem_pred
+
+    height, width = rgb_src.shape[1:3]
+    device = rgb_src.device
+    masks, start = [], 0
+    for strategy, count in mixup_groups:
+        rows = slice(start, start + count)
+        start += count
+        if strategy == "cut_mixup":
+            crop_h = height // cut_cfg.nof_vert_splits
+            crop_w = width // cut_cfg.nof_hor_splits
+            yy = torch.arange(height, device=device)[:, None]
+            xx = torch.arange(width, device=device)[None, :]
+            cells = mixup["cut_cells"].long()          # (N_cut, segments)
+            mul_x = (cells % cut_cfg.nof_hor_splits)[:, :, None, None]
+            mul_y = (cells // cut_cfg.nof_hor_splits)[:, :, None, None]
+            in_cell = ((yy >= mul_y * crop_h)
+                       & (yy < (mul_y + 1) * crop_h - 1)
+                       & (xx >= mul_x * crop_w)
+                       & (xx < (mul_x + 1) * crop_w - 1))
+            masks.append(in_cell.any(dim=1))
+        else:
+            table = mixup["class_replace"]             # (N_class, 256)
+            labels = semantic_src[rows].clamp(0, table.shape[1] - 1)
+            masks.append(torch.gather(table, 1, labels.reshape(
+                count, -1)).reshape(labels.shape))
+    mask = torch.cat(masks) if len(masks) > 1 else masks[0]
+    rgb_mix = torch.where(mask[..., None], rgb_w, rgb_src)
+    sem_mix = torch.where(mask, sem_w.long(), semantic_src)
+    return rgb_mix, sem_mix.to(torch.int32)
 
 
 # --------------------------------------------------------- student update
@@ -192,6 +301,7 @@ def _blend_ema(state: AdaptState, do_ema: bool) -> None:
 
 def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                     num_mixup: int = 0, mixup_groups=None,
+                    fused_mixup: bool = False,
                     sem_ignore_classes=None, eval_forward=None):
     """Build the adaptation step (``adapt.py:233 make_adapt_step``).
 
@@ -207,6 +317,14 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     samples; each group gets ONE pooled top-k CE with unit pixel weights,
     weighted once by ``cfg.losses.weights[f"semantic_{strategy}"]`` (the
     reference's per-key loss, ``adapt.py:686-708``).
+
+    With ``fused_mixup`` the step composes ``cut_mixup`` and
+    ``class_mixup`` samples itself (``adapt.py:359-443``): the teacher's
+    argmax over ``rgb_tgt`` on the weights from before the update, the
+    camera warp into the source frame (``geom_augment``), then the masks
+    -- cut cells ending at ``(k+1)*crop - 1`` (exclusive, so a 1-px seam)
+    or the source pixels whose class the (N, 256) table marks. The
+    composed images are constants for autograd.
 
     With a frozen depth encoder, the teacher eval takes the target frame's
     encoder features and, when the depth head is not EMA-filtered, its
@@ -228,6 +346,12 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     if sum(c for _, c in mixup_groups) != num_mixup:
         raise ValueError(f"mixup_groups {mixup_groups} do not add up to "
                          f"{num_mixup} samples")
+    if fused_mixup and any(s not in ("cut_mixup", "class_mixup")
+                           for s, _ in mixup_groups):
+        raise ValueError(f"fused mixup composes cut_mixup and class_mixup, "
+                         f"got {mixup_groups}")
+    cut_cfg = cfg.adapt.mixup.cut_mix
+    geom_augment = cfg.adapt.mixup.general.geom_augment
 
     def sem_loss(prediction, target, pixel_weights):
         return semantic_loss(prediction, target, pixel_weights,
@@ -334,8 +458,15 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         if student.semantic_head is not None:
             mix_feats = None
             if num_mixup > 0:
+                if fused_mixup:
+                    mix_rgb, mix_semantic = compose_mixup(
+                        state.teacher, batch["mixup"], mixup_groups,
+                        cut_cfg, geom_augment, mean, std)
+                else:
+                    mix_rgb = batch["mixup"]["rgb"]
+                    mix_semantic = batch["mixup"]["semantic"]
                 mix_feats = student.backbone_po_depth(
-                    _nchw_images(batch["mixup"]["rgb"], mean, std))
+                    _nchw_images(mix_rgb, mean, std))
             if mix_feats is not None \
                     and mix_feats[0].shape[1:] == source_feats[0].shape[1:]:
                 # One semantic-head pass over source and mixup: the head
@@ -351,7 +482,6 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             losses["semantic_source"] = sem_loss(
                 sem_src, source["semantic"], source["semantic_weights"])
             if sem_mix is not None:
-                mix_semantic = batch["mixup"]["semantic"]
                 start = 0
                 for strategy, count in mixup_groups:
                     sl = slice(start, start + count)

@@ -91,3 +91,63 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
     net = CodepsNet(init_params(modules, seed=0, device="cpu"),
                     device="cpu")
     assert net.device == torch.device("cpu")
+
+
+STREAM_MODULES = ("codeps_torch.tasks.adapt_loop",
+                  "codeps_torch.tasks.mixup_prep",
+                  "codeps_torch.data.replay_buffer",
+                  "codeps_torch.data.preprocessing",
+                  "codeps_torch.data.kitti_360",
+                  "codeps_torch.data.cityscapes",
+                  "codeps_torch.data.synthetic",
+                  "codeps_torch.evaluation.panoptic_metrics")
+
+
+@pytest.mark.parametrize("module", STREAM_MODULES)
+def test_streamed_path_imports_no_pil_cv2_or_yaml(module):
+    """Even where PIL, cv2 and yaml are installed, importing a module of
+    the streamed path loads none of them: only the file readers and
+    writers import them, inside their functions."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {str(REPO)!r})
+        import importlib
+        importlib.import_module({module!r})
+        print(sorted(m for m in ("PIL", "cv2", "yaml", "jax")
+                     if m in sys.modules))
+    """)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
+def _target_stub():
+    import types
+    from codeps_torch.data import labels
+    return types.SimpleNamespace(target_data=types.SimpleNamespace(
+        thing_classes=labels.thing_classes("codeps", []),
+        stuff_classes=labels.stuff_classes("codeps", []),
+        ignore_classes=[], num_classes=14))
+
+
+def test_runner_raises_without_a_card_and_on_host_mixup(no_cuda):
+    from codeps_torch.config import get_cfg_defaults_adapt
+    from codeps_torch.models import build_modules
+    from codeps_torch.tasks.adapt_loop import AdaptationRunner
+
+    cfg = get_cfg_defaults_adapt()
+    cfg.model.po_depth_net.params.nof_layers = 18
+    cfg.dataset.feed_img_size = [32, 64]
+    cfg.adapt.source_dataset.feed_img_size = [32, 64]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
+                         _target_stub())
+    # the defaults' conf_instance_mixup composes on the host: a later slice
+    with pytest.raises(NotImplementedError, match="conf_instance_mixup"):
+        AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
+                         _target_stub(), device="cpu")
+    cfg.adapt.mixup.general.mixup_strategies = ["cut_mixup", "class_mixup"]
+    runner = AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
+                              _target_stub(), device="cpu")
+    assert runner.device == torch.device("cpu")
