@@ -57,15 +57,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
     matching, the numpy color jitter), only file decoding is bypassed.
     The grouping kernel must launch twice a frame (teacher eval and GT
     map) with no layout copy and equal its plain version on every call;
-    every meter must be finite. Prints the frame latency (host clock,
-    median after 2 warm-up frames, and its range), frames/s, the host
-    time of ``ReplayBuffer.__getitem__`` and of ``buffer.add``, the peak
-    memory and the final PQ, mIoU and abs_rel; times the published
-    rare-class source sampling on its own. Then a 3-frame stream at
-    64x192 (source 64x128) with ResNet-18 runs on the card and on the
-    CPU from the same weights, samples and automask noise, and their
-    PQ, mIoU and abs_rel must agree within ``scripts/parity_e2e.py``'s
-    tolerances;
+    every meter must be finite; every GT panoptic map must hold thing
+    segments and score PQ 1 against itself. Frames go to the card as
+    float32, the yaml's default. Prints the frame latency (host clock,
+    median after 2 warm-up frames, and its range), frames/s (those frames
+    over their summed wall time), the host time of
+    ``ReplayBuffer.__getitem__`` and of ``buffer.add``, the peak memory
+    and the final PQ, mIoU and abs_rel; times the published rare-class
+    source sampling on its own. Then the same stream again with frames
+    PROFILED_FRAMES after the warm-up traced by ``torch.profiler``: the
+    card's busy share of the host's wall time; the stream with uint8
+    frames (``normalization.uint8_transfer``), as a second row;
+    ``buffer.add`` on its own on an index filled to the buffer's 300
+    vectors of 2048 floats, then adds that evict. Last, a 3-frame stream
+    at 64x192 (source 64x128) with ResNet-18 runs on the card and on the
+    CPU from the same weights, samples and automask noise: their PQ,
+    mIoU and abs_rel must agree within ``scripts/parity_e2e.py``'s
+    tolerances, their GT panoptic maps must be equal, and so must their
+    per-class GT segment counts and true positives;
  8. the ``kernels`` line (with the per-n times and bounds and the layout
     copies on each path), then the last line
     ``{"ok": true, "device": {...}}``.
@@ -90,6 +99,7 @@ from __future__ import annotations
 import copy
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -131,6 +141,8 @@ CITYSCAPES_CAMERA = (2262.52 / 2, 2265.3017905988554 / 2, 1096.98 / 2,
 STREAM_FRAMES = 12
 SOURCE_IMAGES = 8
 WARMUP_FRAMES = 2
+# stream frames profiled after the warm-up, for the card's busy share
+PROFILED_FRAMES = 3
 # full-size images of the two datasets, (W, H)
 KITTI_360_FULL = (1408, 376)
 CITYSCAPES_FULL = (2048, 1024)
@@ -420,10 +432,11 @@ def check_adapt_outputs(torch, metrics, results, stats, height, width):
     check_outputs(torch, results, 1, height, width)
 
 
-def stream_config(target_size, source_size, layers=101):
+def stream_config(target_size, source_size, layers=101, uint8=False):
     """The adapt config with the rest of cfg/adapt_cityscapes_kitti_360.yaml
     set in code (the replay sampler and buffers, the cut-mixup grid, the
-    adaptation split) and frames sent to the card as uint8."""
+    adaptation split); with ``uint8`` the frames go to the card as uint8
+    (``normalization.uint8_transfer``, which the yaml leaves off)."""
     cfg = adapt_config(target_size, source_size)
     cfg.model.po_depth_net.params.nof_layers = layers
     cfg.dataset.path = cfg.adapt.source_dataset.path = "(in memory)"
@@ -445,10 +458,9 @@ def stream_config(target_size, source_size, layers=101):
     cfg.adapt.mixup.cut_mix.nof_hor_splits = 4
     cfg.adapt.mixup.cut_mix.nof_vert_splits = 2
     cfg.adapt.mixup.cut_mix.nof_segments = 2
-    # frames travel as uint8 and are normalized on the card, with the
-    # host's arithmetic (a transport setting: the model sees the same
-    # floats, tests/test_torch_data.py)
-    cfg.dataset.normalization.uint8_transfer = True
+    # a transport setting: the card normalizes with the host's arithmetic,
+    # so the model sees the same floats (tests/test_torch_data.py)
+    cfg.dataset.normalization.uint8_transfer = uint8
     cfg.adapt.source_dataset.normalization = cfg.dataset.normalization
     return cfg
 
@@ -604,6 +616,186 @@ def meter_values(meters):
             if count and np.ndim(meter.value) == 0:
                 out[name] = float(meter.value)
     return out
+
+
+def drive_stream(torch, runner, card, max_frames=None, on_frame=None):
+    """(meters, run) of ``runner``'s stream, with the grouping counts set
+    to 0 just before it and read just after. On the ``card`` the kernel
+    must launch twice a frame with no layout copy, and every grouping call
+    is kept and checked against the plain version after the run.
+    ``run`` also holds the (GT, prediction) panoptic maps the PQ meter
+    took, the seconds and the peak memory."""
+    from codeps_torch.ops import grouping
+    from codeps_torch.ops import panoptic as panoptic_ops
+    grouped, pq_maps = [], []
+    group_pixels = panoptic_ops.group_pixels
+    update = runner.panoptic_eval.update
+
+    def recording(yx, valid, offsets):
+        out = group_pixels(yx, valid, offsets)
+        grouped.append((yx.clone(), valid.clone(), offsets.clone(), out))
+        return out
+
+    def recording_update(pan_gt, pan_pred):
+        pq_maps.append((pan_gt.copy(), pan_pred.copy()))
+        update(pan_gt, pan_pred)
+
+    panoptic_ops.group_pixels = recording
+    runner.panoptic_eval.update = recording_update
+    if card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    grouping.group_pixels_cuda.launches = 0
+    grouping.group_pixels_cuda.copies = 0
+    t0 = time.perf_counter()
+    try:
+        meters = runner.run(max_frames=max_frames, on_frame=on_frame)
+        if card:
+            torch.cuda.synchronize()
+    finally:
+        panoptic_ops.group_pixels = group_pixels
+        runner.panoptic_eval.update = update
+    run = {"seconds": time.perf_counter() - t0,
+           "launches": grouping.group_pixels_cuda.launches,
+           "copies": grouping.group_pixels_cuda.copies,
+           "peak": torch.cuda.max_memory_allocated() if card else 0,
+           "frames": runner.state.step, "pq_maps": pq_maps,
+           "centers": [int(v.sum()) for _, v, _, _ in grouped],
+           "max_abs_err": 0}
+    if card:
+        assert run["launches"] == 2 * run["frames"], run["launches"]
+        assert run["copies"] == 0, run["copies"]
+        for yx, valid, offsets, out in grouped:
+            ref = grouping.group_pixels_plain(yx, valid, offsets)
+            run["max_abs_err"] = max(run["max_abs_err"], int(
+                (out.long() - ref.long()).abs().max()))
+            assert torch.equal(out, ref), "kernel != plain in the stream"
+    values = meter_values(meters)
+    bad = [k for k, v in values.items() if not math.isfinite(v)]
+    assert not bad, f"meters not finite: {bad}"
+    return meters, run
+
+
+def check_gt_maps(pq_maps, stuff, things):
+    """Each GT panoptic map the PQ meter took holds thing segments, and
+    scores PQ 1 against itself: the accumulation sees what the map
+    holds. Returns the thing segments per map."""
+    import numpy as np
+    from codeps_torch.evaluation.panoptic_metrics import PanopticEvaluator
+    segments = []
+    for gt, _ in pq_maps:
+        ids = set(int(i) for i in np.unique(gt))
+        segments.append(sum(1 for i in ids if i // 1000 in things))
+        evaluator = PanopticEvaluator(list(stuff), list(things))
+        evaluator.update(gt, gt)
+        pq = evaluator.evaluate()["All"]["pq"]
+        assert pq == 1.0, f"PQ of a GT map against itself: {pq}"
+    assert segments and min(segments) > 0, segments
+    return segments
+
+
+def stream_numbers(runner, run):
+    """Frame latency (median and range after the warm-up frames), frames/s
+    (those frames over their summed wall time) and the host times, ms."""
+    latencies = runner.step_times[WARMUP_FRAMES:]
+    getitem_ms = [t * 1e3 for t in runner.host_times["getitem"]]
+    add_ms = [t * 1e3 for t in runner.host_times["add"]]
+    return {
+        "frames": run["frames"],
+        "frame_ms": statistics.median(latencies) * 1e3,
+        "frame_min_ms": min(latencies) * 1e3,
+        "frame_max_ms": max(latencies) * 1e3,
+        "frames_per_s": len(latencies) / sum(latencies),
+        "stream_s": run["seconds"],
+        "all_ms": [t * 1e3 for t in runner.step_times],
+        "getitem_ms": statistics.median(getitem_ms),
+        "getitem_all_ms": getitem_ms,
+        "add_ms": statistics.median(add_ms),
+        "phases_ms": {name: statistics.median(t[WARMUP_FRAMES:]) * 1e3
+                      for name, t in runner.frame_phases.items()},
+        "peak_mib": run["peak"] / 2**20}
+
+
+def print_stream(name, numbers):
+    n = numbers
+    print(f"{name}: frame latency (host clock, median of "
+          f"{n['frames'] - WARMUP_FRAMES} after {WARMUP_FRAMES} warm-up "
+          f"frames) {n['frame_ms']:.3f} ms, range {n['frame_min_ms']:.3f}-"
+          f"{n['frame_max_ms']:.3f} ms; all: "
+          f"{[round(t, 3) for t in n['all_ms']]}")
+    print(f"{name}: {n['frames_per_s']:.3f} frames/s (the frames after the "
+          f"warm-up over their summed wall time); whole stream "
+          f"{n['stream_s']:.3f} s for {n['frames']} frames")
+    print(f"{name}: ReplayBuffer.__getitem__ in the worker thread, median "
+          f"{n['getitem_ms']:.3f} ms a frame; all "
+          f"{[round(t, 3) for t in n['getitem_all_ms']]}")
+    print(f"{name}: main thread per frame, median ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in n["phases_ms"].items()))
+    print(f"{name}: buffer.add in the stream, median {n['add_ms']:.3f} ms; "
+          f"peak device memory {n['peak_mib']:.1f} MiB")
+
+
+def time_diversity_add(cfg, seed, extra=40):
+    """``ReplayBuffer.add`` on its own at the deployment's size: distinct
+    seeded features of 2048 floats fill the target buffer to its size
+    (300), then ``extra`` more adds each evict one. Returns ms: adds while
+    the index holds its last 50 fills, the first evicting add (which builds
+    the similarity matrix), the later evicting adds, and a search of the
+    full index alone."""
+    import random
+    import numpy as np
+    from codeps_torch.data.replay_buffer import ReplayBuffer
+    size = cfg.adapt.replay_buffer.target_size
+
+    class Frames:
+        """A target stream long enough to fill the buffer."""
+        def __init__(self, n):
+            self.frame_paths = [{"frame": i} for i in range(n)]
+
+        def __len__(self):
+            return len(self.frame_paths)
+
+    n = int(math.ceil((size + extra) / cfg.adapt.target_dataset_adapt_ratio))
+    buffer = ReplayBuffer(Frames(n + 1), cfg.adapt, "train",
+                          rng=random.Random(seed))
+    features = np.random.default_rng(seed).standard_normal(
+        (size + extra, 1, 2048)).astype(np.float32)
+    add_ms = []
+    for index, feature in enumerate(features):
+        t0 = time.perf_counter()
+        buffer.add(index, feature)
+        add_ms.append((time.perf_counter() - t0) * 1e3)
+        assert buffer.sim_index.ntotal == min(index + 1, size), index
+    query = features[0] / np.linalg.norm(features[0])
+    search_ms = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        scores, _ = buffer.sim_index.search(query, 1)
+        search_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"fill_ms": statistics.median(add_ms[size - 50:size]),
+            "first_evict_ms": add_ms[size],
+            "evict_ms": statistics.median(add_ms[size + 1:]),
+            "search_ms": statistics.median(search_ms),
+            "size": buffer.sim_index.ntotal,
+            "dim": buffer.sim_index.dim}
+
+
+def device_busy(torch, events):
+    """(busy, first start, last end) in us of the card's kernels, copies
+    and sets among profiler ``events``; overlaps count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, start, end = 0.0, None, None
+    for s, e in spans:
+        if end is None or s > end:
+            if end is not None:
+                busy += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    if end is not None:
+        busy += end - start
+    return busy, (spans[0][0] if spans else 0.0), (end or 0.0)
 
 
 def main() -> int:
@@ -891,77 +1083,37 @@ def main() -> int:
     phase("7 adaptation stream")
     from codeps_torch.data.dataset import class_distribution
     from codeps_torch.data.replay_buffer import rare_class_sample
-    from codeps_torch.ops import panoptic as panoptic_ops
+    from torch.profiler import ProfilerActivity, profile, schedule
     cfg = stream_config(target_size, source_size)
-    runner, buffer = build_stream(cfg, modules, device, SEED)
+    # the streams' peak memory counts what a stream holds: the earlier
+    # phases' outputs go, and the weights every stream starts from wait
+    # on the host
+    del net, warm, last, centers, yx, valid, offsets, card_modules, on_card
+    stream_modules = modules.cpu()
+    runner, buffer = build_stream(cfg, copy.deepcopy(stream_modules).to(
+        device), device, SEED)
     frames = len(buffer)
-    print(f"stream: {frames} frames of {HEIGHT}x{WIDTH} after the "
-          f"adaptation split, source {len(buffer.source_data)} images of "
-          f"{SOURCE_HEIGHT}x{SOURCE_WIDTH}; frozen "
-          f"{list(runner.state.frozen_modules)}, EMA "
+    print(f"stream, published config (float32 frames): {frames} frames of "
+          f"{HEIGHT}x{WIDTH} after the adaptation split, source "
+          f"{len(buffer.source_data)} images of {SOURCE_HEIGHT}x"
+          f"{SOURCE_WIDTH}; frozen {list(runner.state.frozen_modules)}, EMA "
           f"{list(runner.state.ema_modules)}")
-    # every grouping call of the stream is kept and checked after it
-    grouped = []
-    group_pixels = panoptic_ops.group_pixels
-
-    def recording(yx, valid, offsets):
-        out = group_pixels(yx, valid, offsets)
-        grouped.append((yx.clone(), valid.clone(), offsets.clone(), out))
-        return out
-
-    panoptic_ops.group_pixels = recording
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    grouping.group_pixels_cuda.launches = 0
-    grouping.group_pixels_cuda.copies = 0
-    t0 = time.perf_counter()
-    try:
-        meters = runner.run()
-        torch.cuda.synchronize()
-    finally:
-        panoptic_ops.group_pixels = group_pixels
-    stream_seconds = time.perf_counter() - t0
-    stream_launches = grouping.group_pixels_cuda.launches
-    stream_copies = grouping.group_pixels_cuda.copies
-    stream_peak = torch.cuda.max_memory_allocated()
+    meters, run = drive_stream(torch, runner, card=True)
+    stream_launches, stream_copies = run["launches"], run["copies"]
+    stream_err = run["max_abs_err"]
     print(f"grouping launches in the stream: {stream_launches} in {frames} "
           f"frames; layout copies: {stream_copies}")
-    assert stream_launches == 2 * frames, stream_launches
-    assert stream_copies == 0, stream_copies
-    assert runner.state.step == frames, runner.state.step
-    stream_err = 0
-    for yx, valid, offsets, out in grouped:
-        ref = grouping.group_pixels_plain(yx, valid, offsets)
-        stream_err = max(stream_err, int((out.long() - ref.long()).abs()
-                                         .max()))
-        assert torch.equal(out, ref), "kernel != plain in the stream"
-    print(f"kernel == plain on all {len(grouped)} grouping calls of the "
-          f"stream; valid centers per call: "
-          f"{[int(v.sum()) for _, v, _, _ in grouped]}")
-    del grouped
+    assert run["frames"] == frames, run["frames"]
+    print(f"kernel == plain on all {len(run['centers'])} grouping calls of "
+          f"the stream; valid centers per call: {run['centers']}")
+    segments = check_gt_maps(run["pq_maps"], runner.stuff_list,
+                             runner.thing_list)
+    print(f"GT panoptic maps: thing segments per frame {segments}; each "
+          f"scores PQ 1 against itself")
     values = meter_values(meters)
-    bad = [k for k, v in values.items() if not np.isfinite(v)]
-    assert not bad, f"meters not finite: {bad}"
-    latencies = runner.step_times[WARMUP_FRAMES:]
-    frame_ms = statistics.median(latencies) * 1e3
-    getitem_ms = [t * 1e3 for t in runner.host_times["getitem"]]
-    add_ms = [t * 1e3 for t in runner.host_times["add"]]
-    print(f"frame latency (host clock, median of {len(latencies)} after "
-          f"{WARMUP_FRAMES} warm-up frames): {frame_ms:.3f} ms, range "
-          f"{min(latencies) * 1e3:.3f}-{max(latencies) * 1e3:.3f} ms; all: "
-          f"{[round(t * 1e3, 3) for t in runner.step_times]}")
-    print(f"frames per second: {1e3 / frame_ms:.3f} (median); whole stream "
-          f"{stream_seconds:.3f} s for {frames} frames")
-    print(f"ReplayBuffer.__getitem__ in the stream's worker thread: median "
-          f"{statistics.median(getitem_ms):.3f} ms a frame; all "
-          f"{[round(t, 3) for t in getitem_ms]}")
-    print("main thread per frame, median ms: " + ", ".join(
-        f"{name} {statistics.median(t[WARMUP_FRAMES:]) * 1e3:.3f}"
-        for name, t in runner.frame_phases.items()))
-    print(f"buffer.add: median {statistics.median(add_ms):.3f} ms; all "
-          f"{[round(t, 3) for t in add_ms]}; buffer holds "
-          f"{buffer.sim_index.ntotal} of {frames} frames")
-    print(f"stream peak device memory: {stream_peak / 2**20:.1f} MiB")
+    published = stream_numbers(runner, run)
+    print_stream("published", published)
+    print(f"buffer holds {buffer.sim_index.ntotal} of {frames} frames")
     print("final meters: " + ", ".join(
         f"{k} {values[k]:.6g}" for k in ("p_pq", "p_sq", "p_rq", "sem_miou",
                                          "sem_miou_pixels", "d_abs_rel",
@@ -988,7 +1140,71 @@ def main() -> int:
     print(f"rare-class source sampling: class distribution of "
           f"{len(source)} images {count_s * 1e3:.3f} ms, {len(drawn)} images "
           f"drawn {draw_s * 1e3:.3f} ms: {sorted(int(i) for i in drawn)}")
-    del runner, buffer, meters
+    del runner, buffer, meters, run, source
+
+    # the card's busy share of stream frames after the warm-up: the same
+    # stream again, with frames first..last profiled (CUDA activity only)
+    first = WARMUP_FRAMES + 1
+    last = first + PROFILED_FRAMES - 1
+    runner, _ = build_stream(cfg, copy.deepcopy(stream_modules).to(device),
+                             device, SEED)
+    marks, traced = {}, {}
+
+    def trace_ready(prof):
+        traced["busy"] = device_busy(torch, prof.events())
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=first - 1, warmup=1,
+                                   active=PROFILED_FRAMES, repeat=1),
+                 on_trace_ready=trace_ready) as prof:
+        def on_frame(it):
+            marks[it] = time.perf_counter()
+            prof.step()
+        drive_stream(torch, runner, card=True, max_frames=last + 1,
+                     on_frame=on_frame)
+    busy_us, start_us, end_us = traced["busy"]
+    assert busy_us > 0, "no device work in the profiled frames"
+    window_ms = (marks[last] - marks[first - 1]) * 1e3
+    busy = {"frames": [first, last],
+            "host_ms": window_ms / PROFILED_FRAMES,
+            "device_busy_ms": busy_us / 1e3 / PROFILED_FRAMES,
+            "busy_share": busy_us / 1e3 / window_ms,
+            "device_span_ms": (end_us - start_us) / 1e3 / PROFILED_FRAMES,
+            "step_ms": statistics.median(
+                runner.frame_phases["step"][first:last + 1]) * 1e3}
+    print(f"profiled frames {first}-{last}: host {busy['host_ms']:.3f} ms "
+          f"a frame (profiler on), of which the main thread's step "
+          f"{busy['step_ms']:.3f} ms (median); card busy "
+          f"{busy['device_busy_ms']:.3f} ms a frame = "
+          f"{100 * busy['busy_share']:.1f}% of the host's window, idle "
+          f"{100 * (1 - busy['busy_share']):.1f}%; first to last device "
+          f"work {busy['device_span_ms']:.3f} ms a frame")
+    del runner
+
+    # the uint8 transport (an option of the config; the card normalizes)
+    runner, _ = build_stream(stream_config(target_size, source_size,
+                                           uint8=True),
+                             copy.deepcopy(stream_modules).to(device), device,
+                             SEED)
+    meters, run = drive_stream(torch, runner, card=True)
+    assert run["frames"] == frames, run["frames"]
+    check_gt_maps(run["pq_maps"], runner.stuff_list, runner.thing_list)
+    print(f"uint8 frames: grouping launches {run['launches']} in {frames} "
+          f"frames, layout copies {run['copies']}, kernel == plain on every "
+          f"call")
+    uint8_frames = stream_numbers(runner, run)
+    print_stream("uint8 frames", uint8_frames)
+    del runner, meters, run, stream_modules, modules
+
+    # the diversity buffer at the size a deployment reaches
+    diversity = time_diversity_add(cfg, SEED)
+    print(f"buffer.add on its own, index of {diversity['size']} vectors of "
+          f"{diversity['dim']} floats: {diversity['fill_ms']:.3f} ms (median "
+          f"of the last 50 adds that fill it), first evicting add "
+          f"{diversity['first_evict_ms']:.3f} ms (builds the similarity "
+          f"matrix), later evicting adds {diversity['evict_ms']:.3f} ms "
+          f"(median); a search of the full index alone "
+          f"{diversity['search_ms']:.3f} ms")
 
     small_target, small_source = (64, 192), (64, 128)
     small_cfg = stream_config(small_target, small_source, layers=18)
@@ -1002,16 +1218,41 @@ def main() -> int:
                             ("cpu", cpu_modules, torch.device("cpu"))):
         small_runner, _ = build_stream(small_cfg, mods, dev, SEED,
                                        noise=numpy_noise(torch, SEED, dev))
-        small[name] = meter_values(small_runner.run(max_frames=3))
-        assert small_runner.state.step == 3
+        small_meters, small_run = drive_stream(
+            torch, small_runner, card=name == "card", max_frames=3)
+        labels = (small_runner.stuff_list, small_runner.thing_list)
+        assert small_run["frames"] == 3
+        stats = small_runner.panoptic_eval.pq_stats.pq_per_cat
+        small[name] = (meter_values(small_meters), small_run["pq_maps"],
+                       {int(c): (s.tp, s.fp, s.fn, s.iou)
+                        for c, s in sorted(stats.items())})
     for key, tol in (("p_pq", PQ_TOL), ("sem_miou", MIOU_TOL),
                      ("d_abs_rel", ABS_REL_TOL)):
-        err = abs(small["card"][key] - small["cpu"][key])
-        print(f"64x192 stream card vs CPU {key}: {small['card'][key]:.6g} vs "
-              f"{small['cpu'][key]:.6g}, |diff| {err:.3g} (bound {tol})")
-        assert err <= tol, key
-    for key, ref in small["cpu"].items():
-        assert key in small["card"], key
+        card, cpu = small["card"][0][key], small["cpu"][0][key]
+        print(f"64x192 stream card vs CPU {key}: {card:.6g} vs {cpu:.6g}, "
+              f"|diff| {abs(card - cpu):.3g} (bound {tol})")
+        assert abs(card - cpu) <= tol, key
+    for key in small["cpu"][0]:
+        assert key in small["card"][0], key
+    # PQ is 0 with random heads: the GT maps and the per-class counts are
+    # what can disagree
+    assert len(small["card"][1]) == len(small["cpu"][1]) == 3
+    for (gt_card, pred_card), (gt_cpu, pred_cpu) in zip(small["card"][1],
+                                                        small["cpu"][1]):
+        assert np.array_equal(gt_card, gt_cpu), "GT panoptic map card != CPU"
+        print(f"64x192 stream GT panoptic map: card == CPU, "
+              f"{len(np.unique(gt_card))} segments; the predicted maps agree "
+              f"on {float((pred_card == pred_cpu).mean()):.6f} of the pixels")
+    check_gt_maps(small["card"][1], *labels)
+    print(f"64x192 stream PQ statistics per class (tp, fp, fn, iou): card "
+          f"{small['card'][2]}; CPU {small['cpu'][2]}")
+    gt_segments = {name: {c: tp + fn for c, (tp, _, fn, _) in
+                          side[2].items() if tp + fn}
+                   for name, side in small.items()}
+    assert gt_segments["card"] == gt_segments["cpu"], gt_segments
+    assert sum(gt_segments["card"].values()) > 0, gt_segments
+    for c, (tp, _, fn, _) in small["cpu"][2].items():
+        assert small["card"][2].get(c, (0, 0, 0, 0))[0] == tp, c
 
     phase("8 result")
     print(json.dumps({"kernels": [{
@@ -1033,11 +1274,12 @@ def main() -> int:
         "ms": step_ms, "steps_per_s": 1e3 / step_ms,
         "peak_mib": adapt_peak / 2**20,
         "all_ms": [t * 1e3 for t in step_seconds]}}))
+    keep = ("frames", "frame_ms", "frame_min_ms", "frame_max_ms",
+            "frames_per_s", "getitem_ms", "add_ms", "peak_mib")
     print(json.dumps({"adapt_stream": {
-        "frames": frames, "frame_ms": frame_ms, "frames_per_s":
-        1e3 / frame_ms, "peak_mib": stream_peak / 2**20,
-        "getitem_ms": statistics.median(getitem_ms),
-        "add_ms": statistics.median(add_ms),
+        "published": {k: published[k] for k in keep},
+        "uint8_frames": {k: uint8_frames[k] for k in keep},
+        "device_busy": busy, "diversity_add": diversity,
         "p_pq": values["p_pq"], "sem_miou": values["sem_miou"],
         "d_abs_rel": values["d_abs_rel"]}}))
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -420,8 +420,12 @@ class AdaptationRunner:
         return sample
 
     def run(self, max_frames: Optional[int] = None,
-            log_interval: Optional[int] = None) -> Dict[str, Any]:
-        """Stream the adaptation split; returns the meters."""
+            log_interval: Optional[int] = None,
+            on_frame: Optional[Callable[[int], None]] = None
+            ) -> Dict[str, Any]:
+        """Stream the adaptation split; returns the meters. ``on_frame(it)``
+        is called as the host's work on frame ``it`` ends (a profiler's
+        ``step``, for one)."""
         log_interval = log_interval or self.cfg.logging.log_step_interval
         num_frames = len(self.buffer)
         if max_frames is not None:
@@ -488,6 +492,8 @@ class AdaptationRunner:
                     consume({"event": event, "host": host, "nsteps": 1,
                              "it": it})
                     self.step_times.append(time.perf_counter() - start)
+                    if on_frame is not None:
+                        on_frame(it)
                     continue
 
                 batch = batch_to_device(self._adapt_batch(sample),
@@ -534,6 +540,8 @@ class AdaptationRunner:
                 pending_add = (sample["index"], host["features"])
                 mark("add")
                 self.step_times.append(time.perf_counter() - start)
+                if on_frame is not None:
+                    on_frame(it)
 
             if pending_frame is not None:
                 consume(pending_frame)

@@ -168,8 +168,10 @@ def streams(tmp_path_factory):
                                       params, stats, pcfg)
     prunner = AdaptationRunner(pcfg, pmodules, pbuffer, device="cpu",
                                verbose=False, noise=JaxNoise(state_key))
-    pmeters = prunner.run(max_frames=FRAMES)
-    return {"jax": (jrunner, jmeters), "port": (prunner, pmeters)}
+    ended = []
+    pmeters = prunner.run(max_frames=FRAMES, on_frame=ended.append)
+    return {"jax": (jrunner, jmeters), "port": (prunner, pmeters),
+            "frames_ended": ended}
 
 
 def _value(meters, kind, name):
@@ -190,6 +192,12 @@ def test_stream_metrics_match(streams):
             count = getattr(meter, "count", None)
             if count is not None:
                 assert pm[kind][name].count == count, (kind, name)
+
+
+def test_on_frame_follows_every_frame(streams):
+    prunner, _ = streams["port"]
+    assert streams["frames_ended"] == list(range(FRAMES))
+    assert len(prunner.step_times) == FRAMES
 
 
 def test_panoptic_statistics_match(streams):
