@@ -75,8 +75,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
     mIoU and abs_rel must agree within ``scripts/parity_e2e.py``'s
     tolerances, their GT panoptic maps must be equal, and so must their
     per-class GT segment counts and true positives;
- 8. the ``kernels`` line (with the per-n times and bounds and the layout
-    copies on each path), then the last line
+ 8. adaptation CLI: ``codeps_torch.scripts.adapt.run_adaptation`` (what
+    ``python -m codeps_torch.scripts.adapt`` runs after reading its files)
+    with ``cfg/adapt_cityscapes_semkittidvps.yaml``'s values set in code
+    (ResNet-101, 384x1280, Cityscapes at 512x1024, the KITTI-360 yaml's
+    adapt section) on a SemKITTI-DVPS-like sequence of CLI_FRAMES frames
+    made in memory (the reader's own label maps, P2 camera and depth
+    handling; the 0.7 split streams 8 frames and holds out 4), a
+    Cityscapes-like source of SOURCE_IMAGES images and a val of
+    CLI_SOURCE_VAL. The CLI
+    loads the stream's starting weights from a ``.pth`` written by
+    ``io/checkpoint.save_checkpoint`` under ``chiprun_out/`` (and deleted
+    after), and every tensor it loads must equal the saved one. It streams,
+    then validates the EMA teacher on the held-out frames and on the source
+    val. The grouping counts are set to 0 before each part and read after:
+    2 launches a frame, 2 a validation batch, no layout copy, the kernel
+    equal to its plain version on every call (shapes printed); every GT
+    panoptic map holds thing segments and scores PQ 1 against itself.
+    Prints the stream's frame latency and frames/s, the validation time per
+    batch (host clock, median) of both splits, both metric dicts and the
+    peak memory, then the parts of a validation batch timed on their own
+    (item, upload, eval forward, GT map, readback with PQ). Then a ResNet-18 ``run_validation`` at 64x192 over 2
+    held-out batches on the card and on the CPU: the GT and the predicted
+    panoptic maps equal, the confusion matrices within NEAR_TIE_SHARE of
+    their pixels, PQ/SQ/RQ, mIoU and abs_rel within 0.005 and the other
+    depth means within DEPTH_REL_TOL relative;
+ 9. the ``kernels`` line (with the per-n times and bounds and the layout
+    copies on each path), the ``adapt_step``, ``adapt_stream`` and
+    ``adapt_cli`` lines, then the last line
     ``{"ok": true, "device": {...}}``.
 
 Random weights from the JAX package's initialization scheme let the
@@ -148,6 +174,25 @@ KITTI_360_FULL = (1408, 376)
 CITYSCAPES_FULL = (2048, 1024)
 # scripts/parity_e2e.py:52-54, PQ as a fraction
 PQ_TOL, MIOU_TOL, ABS_REL_TOL = 0.005, 0.005, 0.005
+# Adaptation CLI (phase 8): cfg/adapt_cityscapes_semkittidvps.yaml's feed
+# size; a target sequence of CLI_FRAMES frames, of which the 0.7 split
+# streams 8 and holds out 4, and a Cityscapes val of CLI_SOURCE_VAL images.
+SEMKITTI_HEIGHT, SEMKITTI_WIDTH = 384, 1280
+CLI_FRAMES = 12
+CLI_SOURCE_VAL = 4
+# SemanticKITTI sequence 07 (KITTI odometry 04-12): the full-size image,
+# (W, H), and the left color camera's P2 in calib.txt
+SEMKITTI_FULL = (1226, 370)
+SEMKITTI_P2 = (707.0912, 0.0, 601.8873, 46.88783, 0.0, 707.0912, 183.1104,
+               0.1178601, 0.0, 0.0, 1.0, 0.006203223)
+# SemanticKITTI raw ids: building, vegetation, terrain, sidewalk, road
+# bands; person and car rectangles
+SEMKITTI_LABELS = {"stuff": (12, 14, 16, 10, 8), "thing_ids": (5, 0),
+                   "stuff_instances": False}
+# other depth means, card against CPU (tests/test_torch_validate.py)
+DEPTH_REL_TOL = 1e-3
+# share of pixels whose argmax may flip between two float32 devices
+NEAR_TIE_SHARE = 0.005
 
 
 def phase(name):
@@ -472,20 +517,24 @@ def scaled_camera(camera, full_size, size):
     return (camera[0] * sx, camera[1] * sy, camera[2] * sx, camera[3] * sy)
 
 
-def street_labels(rng, height, width, things):
+def street_labels(rng, height, width, things, stuff=(23, 11, 21, 8, 7),
+                  thing_ids=(24, 26), stuff_instances=True):
     """Raw label ids (uint8) and instance ids (uint16) of a street-like
-    frame: stuff bands (sky, building, vegetation, sidewalk, road) and
-    ``things`` rectangles of people and cars, both classes always
-    present."""
+    frame: five bands of ``stuff`` ids (by default KITTI-360's and
+    Cityscapes' sky, building, vegetation, sidewalk, road) and ``things``
+    rectangles alternating between the two ``thing_ids`` (people and
+    cars), both always present. A thing's instance id is its raw id *
+    1000 + its number; stuff pixels carry raw id * 1000, or 0 without
+    ``stuff_instances``."""
     import numpy as np
     semantic = np.empty((height, width), np.uint8)
     for (top, bottom), raw in zip(((0, 0.2), (0.2, 0.45), (0.45, 0.55),
-                                   (0.55, 0.7), (0.7, 1.0)),
-                                  (23, 11, 21, 8, 7)):
+                                   (0.55, 0.7), (0.7, 1.0)), stuff):
         semantic[int(top * height):int(bottom * height)] = raw
-    instance = semantic.astype(np.uint16) * 1000
+    instance = semantic.astype(np.uint16) * 1000 if stuff_instances \
+        else np.zeros((height, width), np.uint16)
     for i in range(things):
-        raw = (24, 26)[i % 2]
+        raw = thing_ids[i % 2]
         h = int(rng.integers(height // 10, height // 3))
         w = int(rng.integers(width // 40, width // 8))
         y = int(rng.integers(height // 3, height - h))
@@ -495,62 +544,40 @@ def street_labels(rng, height, width, things):
     return semantic, instance
 
 
-def stream_datasets(cfg, frames, source_images, seed):
-    """(target, source): the port's KITTI-360 and Cityscapes readers on
-    frames made in memory from ``seed`` at the config's feed sizes (their
-    ``_read`` replaced; everything after the file decoding is the
-    readers' own). The target has ``frames`` / 0.7 frames so that
-    ``frames`` remain after the adaptation split; its depth GT is sparse,
-    as projected LiDAR is."""
+def memory_sequence(rng, n, height, width, **labels):
+    """(frames, labels): n + 2 uint8 frames (n centers and their two
+    neighbours) and n street-like label maps (``street_labels`` with
+    ``labels``) drawn from ``rng``."""
     import numpy as np
+    images = rng.integers(0, 256, (n + 2, height, width, 3), dtype=np.uint8)
+    return images, [street_labels(rng, height, width, 6, **labels)
+                    for _ in range(n)]
+
+
+def memory_depths(rng, n, height, width):
+    """n sparse metric depth maps (5% of the pixels, 2-79 m), as projected
+    LiDAR is."""
+    import numpy as np
+    return [np.where(rng.random((height, width)) < 0.05,
+                     rng.uniform(2.0, 79.0, (height, width)),
+                     0.0).astype(np.float32) for _ in range(n)]
+
+
+def memory_cityscapes(source_cfg, mode, count, rng):
+    """The port's Cityscapes reader in ``mode`` on ``count`` images made
+    in memory from ``rng`` at the config's feed size (``_read`` replaced;
+    everything after the file decoding is the reader's own); it counts its
+    class distribution where the reader loads the pickled one."""
     from codeps_torch.data.cityscapes import Cityscapes
     from codeps_torch.data.dataset import Dataset, class_distribution
-    from codeps_torch.data.kitti_360 import Kitti360
-    rng = np.random.default_rng(seed)
-
-    def sequence(n, height, width):
-        images = rng.integers(0, 256, (n + 2, height, width, 3),
-                              dtype=np.uint8)
-        labels = [street_labels(rng, height, width, 6) for _ in range(n)]
-        return images, labels
-
-    class MemoryKitti360(Kitti360):
-        def __init__(self):
-            Dataset.__init__(self, "kitti_360", ["sequence"], "sequence",
-                             cfg.dataset, return_depth=True)
-            self.sequence_reference_mode = "rgb"
-            self.semantic_seq_mode_image_skipped = []
-            self.sequences = list(cfg.dataset.sequences)
-            height, width = self.image_size
-            n = int(np.ceil(frames / 0.7))
-            self.images, self.labels = sequence(n, height, width)
-            self.depths = [np.where(rng.random((height, width)) < 0.05,
-                                    rng.uniform(2.0, 79.0, (height, width)),
-                                    0.0).astype(np.float32)
-                           for _ in range(n)]
-            self.frame_paths = [{"frame": i} for i in range(n)]
-            self.camera_model = np.asarray(scaled_camera(
-                KITTI_360_CAMERA, (HEIGHT, WIDTH), self.image_size),
-                np.float32)
-
-        def _read(self, index, with_labels):
-            n = self.frame_paths[index]["frame"]
-            out = {"rgb": {0: self.images[n + 1], -1: self.images[n],
-                           1: self.images[n + 2]},
-                   "image_size": KITTI_360_FULL}
-            if with_labels:
-                out["semantic"], out["instance"] = self.labels[n]
-                out["depth"] = self.depths[n]
-            return out
 
     class MemoryCityscapes(Cityscapes):
         def __init__(self):
-            Dataset.__init__(self, "cityscapes", ["train"], "train",
-                             cfg.adapt.source_dataset)
+            Dataset.__init__(self, "cityscapes", [mode], mode, source_cfg)
             height, width = self.image_size
-            self.images, self.labels = sequence(source_images, height,
-                                                width)
-            self.frame_paths = [{"frame": i} for i in range(source_images)]
+            self.images, self.labels = memory_sequence(rng, count, height,
+                                                       width)
+            self.frame_paths = [{"frame": i} for i in range(count)]
             full = CITYSCAPES_FULL[::-1]
             fx, fy, cx, cy = scaled_camera(CITYSCAPES_CAMERA,
                                            (SOURCE_HEIGHT, SOURCE_WIDTH),
@@ -570,12 +597,302 @@ def stream_datasets(cfg, frames, source_images, seed):
             return out
 
         def load_class_distribution(self):
-            # counted here, where the readers load the pickled one
             if self.distribution is None:
                 self.distribution = class_distribution(self)
             return self.distribution
 
-    return MemoryKitti360(), MemoryCityscapes()
+    return MemoryCityscapes()
+
+
+def stream_datasets(cfg, frames, source_images, seed):
+    """(target, source): the port's KITTI-360 and Cityscapes readers on
+    frames made in memory from ``seed`` at the config's feed sizes (their
+    ``_read`` replaced; everything after the file decoding is the
+    readers' own). The target has ``frames`` / 0.7 frames so that
+    ``frames`` remain after the adaptation split; its depth GT is sparse,
+    as projected LiDAR is."""
+    import numpy as np
+    from codeps_torch.data.dataset import Dataset
+    from codeps_torch.data.kitti_360 import Kitti360
+    rng = np.random.default_rng(seed)
+
+    class MemoryKitti360(Kitti360):
+        def __init__(self):
+            Dataset.__init__(self, "kitti_360", ["sequence"], "sequence",
+                             cfg.dataset, return_depth=True)
+            self.sequence_reference_mode = "rgb"
+            self.semantic_seq_mode_image_skipped = []
+            self.sequences = list(cfg.dataset.sequences)
+            height, width = self.image_size
+            n = int(np.ceil(frames / 0.7))
+            self.images, self.labels = memory_sequence(rng, n, height, width)
+            self.depths = memory_depths(rng, n, height, width)
+            self.frame_paths = [{"frame": i} for i in range(n)]
+            self.camera_model = np.asarray(scaled_camera(
+                KITTI_360_CAMERA, (HEIGHT, WIDTH), self.image_size),
+                np.float32)
+
+        def _read(self, index, with_labels):
+            n = self.frame_paths[index]["frame"]
+            out = {"rgb": {0: self.images[n + 1], -1: self.images[n],
+                           1: self.images[n + 2]},
+                   "image_size": KITTI_360_FULL}
+            if with_labels:
+                out["semantic"], out["instance"] = self.labels[n]
+                out["depth"] = self.depths[n]
+            return out
+
+    target = MemoryKitti360()
+    return target, memory_cityscapes(cfg.adapt.source_dataset, "train",
+                                     source_images, rng)
+
+
+def semkitti_config(target_size, source_size, layers=101):
+    """cfg/adapt_cityscapes_semkittidvps.yaml's values set in code: those
+    of the KITTI-360 yaml (``stream_config``) but for the dataset section.
+    The source buffer takes all SOURCE_IMAGES images by the published
+    rare-class sampling (the yaml's 300 of Cityscapes' 2975)."""
+    cfg = stream_config(target_size, source_size, layers=layers)
+    cfg.dataset.name = "sem_kitti_dvps"
+    cfg.dataset.sequences = ["07"]
+    cfg.adapt.replay_buffer.source_size = SOURCE_IMAGES
+    return cfg
+
+
+def semkitti_datasets(cfg, seed):
+    """(target, held-out target, source, source val): the port's
+    SemKITTI-DVPS and Cityscapes readers on data made in memory from
+    ``seed`` at the config's feed sizes (their ``_read`` replaced;
+    everything after the file decoding, the camera from P2 included, is
+    the readers' own). Both target readers read one sequence of
+    CLI_FRAMES frames, which the replay buffers split at 0.7."""
+    import numpy as np
+    from codeps_torch.data.dataset import Dataset
+    from codeps_torch.data.sem_kitti_dvps import SemKittiDvps
+    rng = np.random.default_rng(seed)
+    height, width = cfg.dataset.feed_img_size
+    images, labels = memory_sequence(rng, CLI_FRAMES, height, width,
+                                     **SEMKITTI_LABELS)
+    depths = memory_depths(rng, CLI_FRAMES, height, width)
+
+    class MemorySemKittiDvps(SemKittiDvps):
+        def __init__(self):
+            Dataset.__init__(self, "sem_kitti_dvps", ["sequence"],
+                             "sequence", cfg.dataset, return_depth=True)
+            self.sequences = list(cfg.dataset.sequences)
+            self.frame_paths = [{"frame": i} for i in range(CLI_FRAMES)]
+
+        def _read(self, index, with_labels):
+            n = self.frame_paths[index]["frame"]
+            out = {"rgb": {0: images[n + 1], -1: images[n],
+                           1: images[n + 2]},
+                   "image_size": SEMKITTI_FULL, "p2": list(SEMKITTI_P2)}
+            if with_labels:
+                out["semantic"], out["instance"] = labels[n]
+                out["depth"] = depths[n]
+            return out
+
+    target, val_target = MemorySemKittiDvps(), MemorySemKittiDvps()
+    source = memory_cityscapes(cfg.adapt.source_dataset, "train",
+                               SOURCE_IMAGES, rng)
+    source_val = memory_cityscapes(cfg.adapt.source_dataset, "val",
+                                   CLI_SOURCE_VAL, rng)
+    return target, val_target, source, source_val
+
+
+def drive_cli(torch, cfg, datasets, checkpoint, saved, device):
+    """``scripts/adapt.run_adaptation`` of the port on ``datasets`` from
+    ``checkpoint`` on ``device``, with the grouping counts set to 0 just
+    before each of its parts (the stream, the held-out target validation,
+    the source validation) and read just after. Every module the CLI loads
+    must equal ``saved`` (the checkpoint's state dicts) bit for bit. Every
+    grouping call and every (GT, prediction) map the PQ meters take is
+    kept, by part, and each call is checked against the plain version.
+    Returns (the CLI's result, the parts' numbers)."""
+    import numpy as np
+    from codeps_torch.evaluation.panoptic_metrics import PanopticEvaluator
+    from codeps_torch.ops import grouping
+    from codeps_torch.ops import panoptic as panoptic_ops
+    from codeps_torch.scripts import adapt as adapt_cli
+    from codeps_torch.tasks.adapt_loop import AdaptationRunner
+    parts, current = {}, [None]
+    group_pixels = panoptic_ops.group_pixels
+    load = adapt_cli.pretrained_from_checkpoints
+    validate = adapt_cli.run_validation
+    run = AdaptationRunner.run
+    update = PanopticEvaluator.update
+
+    def recording(yx, valid, offsets):
+        out = group_pixels(yx, valid, offsets)
+        parts[current[0]]["calls"].append(
+            (yx.clone(), valid.clone(), offsets.clone(), out))
+        return out
+
+    def recording_update(self, pan_gt, pan_pred):
+        parts[current[0]]["pq_maps"].append((pan_gt.copy(), pan_pred.copy()))
+        update(self, pan_gt, pan_pred)
+
+    def counted(name, fn):
+        current[0] = name
+        parts[name] = {"calls": [], "pq_maps": []}
+        torch.cuda.synchronize()
+        grouping.group_pixels_cuda.launches = 0
+        grouping.group_pixels_cuda.copies = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name].update(seconds=time.perf_counter() - t0,
+                           launches=grouping.group_pixels_cuda.launches,
+                           copies=grouping.group_pixels_cuda.copies)
+        return out
+
+    def checked_load(specs, modules, cfg):
+        names = load(specs, modules, cfg)
+        tensors = 0
+        for name in names:
+            for key, value in getattr(modules, name).state_dict().items():
+                assert torch.equal(value.cpu(), saved[name][key]), \
+                    f"loaded {name}.{key} != saved"
+                tensors += 1
+        parts["load"] = {"modules": names, "tensors": tensors}
+        return names
+
+    def counted_run(self, *args, **kwargs):
+        parts["runner"] = self
+        return counted("stream", lambda: run(self, *args, **kwargs))
+
+    def counted_validation(cfg, teacher, loader, *args, **kwargs):
+        name = "source_val" if "target_val" in parts else "target_val"
+        marks = []
+
+        def timed():
+            for batch in loader:
+                marks.append(time.perf_counter())
+                yield batch
+            marks.append(time.perf_counter())
+
+        metrics = counted(name, lambda: validate(cfg, teacher, timed(),
+                                                 *args, **kwargs))
+        parts[name]["batch_s"] = [float(t) for t in np.diff(marks)]
+        return metrics
+
+    panoptic_ops.group_pixels = recording
+    PanopticEvaluator.update = recording_update
+    adapt_cli.pretrained_from_checkpoints = checked_load
+    adapt_cli.run_validation = counted_validation
+    AdaptationRunner.run = counted_run
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = adapt_cli.run_adaptation(
+            cfg, *datasets, checkpoints=[str(checkpoint)], device=device)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        panoptic_ops.group_pixels = group_pixels
+        PanopticEvaluator.update = update
+        adapt_cli.pretrained_from_checkpoints = load
+        adapt_cli.run_validation = validate
+        AdaptationRunner.run = run
+    parts["seconds"] = seconds
+    parts["peak"] = torch.cuda.max_memory_allocated()
+    for name in ("stream", "target_val", "source_val"):
+        part = parts[name]
+        part["shapes"] = sorted({tuple(off.shape[:3]) for _, _, off, _
+                                 in part["calls"]})
+        part["centers"] = [int(v.sum()) for _, v, _, _ in part["calls"]]
+        part["max_abs_err"] = 0
+        for yx, valid, offsets, out in part["calls"]:
+            ref = grouping.group_pixels_plain(yx, valid, offsets)
+            part["max_abs_err"] = max(part["max_abs_err"], int(
+                (out.long() - ref.long()).abs().max()))
+            assert torch.equal(out, ref), f"kernel != plain in {name}"
+        del part["calls"]
+    return result, parts
+
+
+def validation_breakdown(torch, cfg, teacher, dataset, thing_list,
+                         stuff_list, ignore_classes):
+    """Host-clock ms of the parts of a validation batch, each on its own
+    over every item of ``dataset`` (batch 1), medians: the loader's item
+    (``__getitem__`` and collate), the upload, the eval forward and the
+    GT map (each synchronized), and the readback with the host's PQ
+    accumulation."""
+    from codeps_torch.data.loader import collate_batch
+    from codeps_torch.evaluation.panoptic_metrics import PanopticEvaluator
+    from codeps_torch.tasks.adapt import make_eval_step, make_gt_panoptic_step
+    from codeps_torch.tasks.validate import _to_device
+    device = next(teacher.parameters()).device
+    eval_step = make_eval_step(cfg, thing_list, teacher.num_classes,
+                               ignore_classes)
+    gt_panoptic = make_gt_panoptic_step(thing_list, teacher.num_classes)
+    evaluator = PanopticEvaluator(list(stuff_list), list(thing_list))
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for index in range(len(dataset)):
+        batch_np = timed("item", lambda: collate_batch([dataset[index]]))
+        batch = timed("upload", lambda: _to_device(batch_np, device))
+        results, stats = timed("eval", lambda: eval_step(teacher, batch))
+        pan_gt = timed("gt_map", lambda: gt_panoptic(
+            batch["semantic"], batch["center"], batch["offset"]))
+        timed("readback_pq", lambda: evaluator.update(
+            pan_gt.cpu().numpy(), results["panoptic"].cpu().numpy()))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def small_validation(torch, device, rng):
+    """``run_validation`` of one ResNet-18 model at 64x192 over the first
+    2 batches of the in-memory SemKITTI-DVPS held-out split, on
+    ``device`` and on the CPU: (metrics, (GT, prediction) maps) per
+    device."""
+    from codeps_torch.data.loader import DataLoader
+    from codeps_torch.data.replay_buffer import ReplayBuffer
+    from codeps_torch.evaluation.panoptic_metrics import PanopticEvaluator
+    from codeps_torch.models import build_modules, init_params
+    from codeps_torch.tasks.adapt import make_eval_step
+    from codeps_torch.tasks.validate import run_validation
+    import numpy as np
+    size = (64, 192)
+    cfg = semkitti_config(size, (64, 128), layers=18)
+    _, val_target, _, _ = semkitti_datasets(cfg, SEED)
+    val = ReplayBuffer(val_target, cfg.adapt, mode="val")
+    cpu_modules = init_params(build_modules(cfg, NUM_CLASSES, device="cpu"),
+                              seed=SEED, device="cpu")
+    frame = rng.integers(0, 256, (1, *size, 3), dtype=np.uint8)
+    calibrate_batch_norm(torch, cpu_modules, frame)
+    # a few centers a frame: 1% of the pixels over the center threshold
+    results, _ = make_eval_step(cfg, THINGS, NUM_CLASSES)(
+        cpu_modules, {"image": torch.from_numpy(frame)})
+    shift = float(0.1 - torch.quantile(results["center"].flatten(), 0.99))
+    with torch.no_grad():
+        cpu_modules.instance_head.center_head.net.conv.bias.add_(shift)
+    card_modules = copy.deepcopy(cpu_modules).to(device)
+    update = PanopticEvaluator.update
+    out = {}
+    try:
+        for name, mods in (("card", card_modules), ("cpu", cpu_modules)):
+            maps = []
+
+            def recording_update(self, pan_gt, pan_pred):
+                maps.append((pan_gt.copy(), pan_pred.copy()))
+                update(self, pan_gt, pan_pred)
+            PanopticEvaluator.update = recording_update
+            metrics = run_validation(
+                cfg, mods, DataLoader(val, batch_size=1, offsets=[1],
+                                      shuffle=False),
+                val.thing_classes, val.stuff_classes, val.ignore_classes,
+                max_batches=2)
+            out[name] = (metrics, maps)
+    finally:
+        PanopticEvaluator.update = update
+    return out
 
 
 def build_stream(cfg, modules, device, seed, noise=None):
@@ -1194,7 +1511,8 @@ def main() -> int:
           f"call")
     uint8_frames = stream_numbers(runner, run)
     print_stream("uint8 frames", uint8_frames)
-    del runner, meters, run, stream_modules, modules
+    # the stream's starting weights wait for phase 8's checkpoint
+    del runner, meters, run, modules
 
     # the diversity buffer at the size a deployment reaches
     diversity = time_diversity_add(cfg, SEED)
@@ -1254,17 +1572,169 @@ def main() -> int:
     for c, (tp, _, fn, _) in small["cpu"][2].items():
         assert small["card"][2].get(c, (0, 0, 0, 0))[0] == tp, c
 
-    phase("8 result")
+    phase("8 adaptation CLI")
+    phase_start = time.perf_counter()
+    from codeps_torch.io.checkpoint import load_checkpoint, save_checkpoint
+    from codeps_torch.io.logging import init_logging
+    init_logging()
+    cli_size = (SEMKITTI_HEIGHT, SEMKITTI_WIDTH)
+    cfg = semkitti_config(cli_size, source_size)
+    checkpoint = (Path(__file__).resolve().parent / "chiprun_out" /
+                  "chip_smoke_adapt_cli.pth")
+    datasets = semkitti_datasets(cfg, SEED)
+    # the checkpoint (some 280 MiB) goes once the CLI has read it: the
+    # output directory must stay small
+    try:
+        save_checkpoint(str(checkpoint), cfg, stream_modules)
+        saved = load_checkpoint(str(checkpoint))["state_dict"]
+        print(f"adaptation CLI, cfg/adapt_cityscapes_semkittidvps.yaml's "
+              f"values: target {len(datasets[0])} frames of {cli_size[0]}x"
+              f"{cli_size[1]} (split at "
+              f"{cfg.adapt.target_dataset_adapt_ratio}), source "
+              f"{len(datasets[2])} images of {SOURCE_HEIGHT}x"
+              f"{SOURCE_WIDTH}, source val {len(datasets[3])}; checkpoint "
+              f"{checkpoint.name} ({checkpoint.stat().st_size / 2**20:.1f} "
+              f"MiB)")
+        result, parts = drive_cli(torch, cfg, datasets, checkpoint, saved,
+                                  device)
+    finally:
+        checkpoint.unlink(missing_ok=True)
+    del stream_modules
+    load = parts["load"]
+    print(f"checkpoint: {load['modules']} loaded, {load['tensors']} "
+          f"tensors bit-equal to the saved ones")
+    assert load["modules"] == list(saved), load["modules"]
+    runner = parts["runner"]
+    cli_frames = runner.state.step
+    batches = {"target_val": 0, "source_val": 0}
+    for name, n in (("stream", cli_frames),
+                    ("target_val", len(parts["target_val"]["batch_s"])),
+                    ("source_val", len(parts["source_val"]["batch_s"]))):
+        part = parts[name]
+        print(f"{name}: grouping launches {part['launches']} for {n} "
+              f"{'frames' if name == 'stream' else 'batches'}, layout "
+              f"copies {part['copies']}; kernel == plain on all "
+              f"{len(part['centers'])} calls, shapes {part['shapes']}, "
+              f"valid centers per call {part['centers']}")
+        assert part["launches"] == 2 * n > 0, (name, part["launches"])
+        assert part["copies"] == 0, (name, part["copies"])
+        segments = check_gt_maps(part["pq_maps"], runner.stuff_list,
+                                 runner.thing_list)
+        print(f"{name}: GT panoptic maps hold {segments} thing segments; "
+              f"each scores PQ 1 against itself")
+        if name != "stream":
+            batches[name] = n
+    assert cli_frames == int(CLI_FRAMES
+                             * cfg.adapt.target_dataset_adapt_ratio)
+    assert batches["target_val"] == CLI_FRAMES - cli_frames
+    assert batches["source_val"] == CLI_SOURCE_VAL
+    assert parts["stream"]["shapes"] == [(1, *cli_size)]
+    assert parts["source_val"]["shapes"] == [(1, SOURCE_HEIGHT,
+                                              SOURCE_WIDTH)]
+    cli_run = {"frames": cli_frames, "seconds": parts["stream"]["seconds"],
+               "peak": parts["peak"]}
+    cli_stream = stream_numbers(runner, cli_run)
+    print_stream("CLI stream", cli_stream)
+    stream_values = meter_values(result["meters"])
+    bad = [k for k, v in stream_values.items() if not math.isfinite(v)]
+    assert not bad, f"CLI stream meters not finite: {bad}"
+    val_numbers = {}
+    for name in ("target_val", "source_val"):
+        metrics = {k: float(v) for k, v in result[name].items()
+                   if np.ndim(v) == 0}
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        assert not bad, f"{name} not finite: {bad}"
+        height, width = (cli_size if name == "target_val"
+                         else (SOURCE_HEIGHT, SOURCE_WIDTH))
+        conf_sum = int(result[name]["sem_conf"].sum())
+        assert conf_sum == batches[name] * height * width, (name, conf_sum)
+        batch_ms = [t * 1e3 for t in parts[name]["batch_s"]]
+        val_numbers[name] = {
+            "batches": batches[name],
+            "batch_ms": statistics.median(batch_ms), "all_ms": batch_ms,
+            "seconds": parts[name]["seconds"], "metrics": metrics}
+        print(f"{name}: time per batch (host clock, median of "
+              f"{len(batch_ms)}) {val_numbers[name]['batch_ms']:.3f} ms; "
+              f"all {[round(t, 3) for t in batch_ms]}; part "
+              f"{parts[name]['seconds']:.3f} s")
+        print(f"{name} metrics: " + ", ".join(
+            f"{k} {v:.6g}" for k, v in metrics.items()))
+    assert "d_abs_rel" in val_numbers["target_val"]["metrics"]
+    print(f"CLI: whole run_adaptation {parts['seconds']:.3f} s; peak device "
+          f"memory {parts['peak'] / 2**20:.1f} MiB")
+    cli_launches = {name: parts[name]["launches"]
+                    for name in ("stream", "target_val", "source_val")}
+    cli_copies = {name: parts[name]["copies"]
+                  for name in ("stream", "target_val", "source_val")}
+    cli_peak, cli_values = parts["peak"], stream_values
+    cli_err = max(parts[name]["max_abs_err"]
+                  for name in ("stream", "target_val", "source_val"))
+    cli_labels = (runner.stuff_list, runner.thing_list)
+    from codeps_torch.data.replay_buffer import ReplayBuffer
+    breakdown = {
+        name: validation_breakdown(torch, cfg, runner.state.teacher, dataset,
+                                   runner.thing_list, runner.stuff_list,
+                                   ignore)
+        for name, dataset, ignore in (
+            ("target_val", ReplayBuffer(semkitti_datasets(cfg, SEED)[1],
+                                        cfg.adapt, mode="val"),
+             runner.ignore_classes),
+            ("source_val", datasets[3], ()))}
+    for name, parts_ms in breakdown.items():
+        print(f"{name}: a batch's parts on their own, median ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts_ms.items()))
+    del runner, result, parts, datasets, saved
+
+    small = small_validation(torch, device, rng)
+    (card_metrics, card_maps), (cpu_metrics, cpu_maps) = (small["card"],
+                                                          small["cpu"])
+    assert len(card_maps) == len(cpu_maps) == 2
+    agree = []
+    for (gt_card, pred_card), (gt_cpu, pred_cpu) in zip(card_maps,
+                                                        cpu_maps):
+        agree.append(float((pred_card == pred_cpu).mean()))
+        print(f"64x192 validation card vs CPU: GT panoptic maps equal "
+              f"{np.array_equal(gt_card, gt_cpu)}, predicted maps equal "
+              f"{np.array_equal(pred_card, pred_cpu)} ({agree[-1]:.6f} of "
+              f"the pixels)")
+        assert np.array_equal(gt_card, gt_cpu), "GT panoptic map card != CPU"
+        assert np.array_equal(pred_card, pred_cpu), \
+            "predicted panoptic map card != CPU"
+    check_gt_maps(card_maps, *cli_labels)
+    conf_card, conf_cpu = card_metrics["sem_conf"], cpu_metrics["sem_conf"]
+    assert conf_card.sum() == conf_cpu.sum() > 0
+    moved = int(np.abs(conf_card - conf_cpu).sum()) // 2
+    print(f"64x192 validation card vs CPU: {moved} of {conf_cpu.sum()} "
+          f"pixels moved in the confusion matrix")
+    assert moved <= NEAR_TIE_SHARE * conf_cpu.sum()
+    scalars = [k for k, v in cpu_metrics.items() if np.ndim(v) == 0]
+    assert set(scalars) == {k for k, v in card_metrics.items()
+                            if np.ndim(v) == 0}
+    for key in scalars:
+        card, cpu = float(card_metrics[key]), float(cpu_metrics[key])
+        tol = (PQ_TOL if key.startswith(("p_", "sem_miou"))
+               or key == "d_abs_rel" else DEPTH_REL_TOL * abs(cpu))
+        print(f"64x192 validation card vs CPU {key}: {card:.6g} vs "
+              f"{cpu:.6g}, |diff| {abs(card - cpu):.3g} (bound {tol:.3g})")
+        assert abs(card - cpu) <= tol, key
+    print(f"phase 8: {time.perf_counter() - phase_start:.3f} s")
+
+    phase("9 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
         "replaces": "codeps_tpu/ops/pallas/grouping.py:30",
-        "launches": launches + adapt_launches + stream_launches,
+        "launches": (launches + adapt_launches + stream_launches
+                     + sum(cli_launches.values())),
         "launches_by_path": {"serve": launches, "adapt": adapt_launches,
-                             "stream": stream_launches},
+                             "stream": stream_launches,
+                             **{f"cli_{k}": v
+                                for k, v in cli_launches.items()}},
         "copies_by_path": {"serve": copies, "adapt": adapt_copies,
-                           "stream": stream_copies},
-        "exact": True, "max_abs_err": max(max_err, stream_err),
+                           "stream": stream_copies,
+                           **{f"cli_{k}": v
+                              for k, v in cli_copies.items()}},
+        "exact": True, "max_abs_err": max(max_err, stream_err, cli_err),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
@@ -1282,6 +1752,17 @@ def main() -> int:
         "device_busy": busy, "diversity_add": diversity,
         "p_pq": values["p_pq"], "sem_miou": values["sem_miou"],
         "d_abs_rel": values["d_abs_rel"]}}))
+    print(json.dumps({"adapt_cli": {
+        "config": "cfg/adapt_cityscapes_semkittidvps.yaml",
+        "stream": {k: cli_stream[k] for k in keep},
+        "target_val": val_numbers["target_val"],
+        "source_val": val_numbers["source_val"],
+        "peak_mib": cli_peak / 2**20, "launches": cli_launches,
+        "copies": cli_copies, "validation_parts_ms": breakdown,
+        "p_pq": cli_values["p_pq"],
+        "sem_miou": cli_values["sem_miou"],
+        "d_abs_rel": cli_values["d_abs_rel"],
+        "small_card_vs_cpu_agree": agree}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -5,8 +5,9 @@ it, imports nothing of it and no JAX, and keeps its module layout so each
 module's counterpart is found by name:
 
   config/   config tree + YAML overrides (own copy; YAML read lazily)
-  data/     label taxonomies, numpy preprocessing, the KITTI-360 and
-            Cityscapes readers, the replay buffer (PIL/cv2 read files only)
+  data/     label taxonomies, numpy preprocessing, the KITTI-360,
+            Cityscapes and SemKITTI-DVPS readers, the loader, the replay
+            buffer (PIL/cv2 read files only)
   ops/      normalize, resize, top-k threshold, grid sampling, panoptic
             fusion and the pixel-grouping kernel (csrc/grouping.cu, built
             at first use)
@@ -14,10 +15,11 @@ module's counterpart is found by name:
   losses/   photometric, smoothness, semantic, instance
   models/   ResNet encoders, depth/pose/semantic/instance heads, the facade
   evaluation/ depth, semantic and panoptic metrics, meters
-  tasks/    forward helpers, optimizer, state, the adaptation step and the
-            streaming runner
-  io/       weight bridge from the JAX trees, visualizations
-  scripts/  ``python -m codeps_torch.scripts.infer``
+  tasks/    forward helpers, optimizer, state, the adaptation step, the
+            streaming runner, validation
+  io/       checkpoints, the weight bridge from the JAX trees, logging,
+            visualizations
+  scripts/  ``python -m codeps_torch.scripts.infer`` and ``...adapt``
 
 Modules are NCHW inside; public functions take and return NHWC images and
 maps, as the JAX counterparts do. Entry points run on ``cuda`` unless the

@@ -1,8 +1,8 @@
 """Synthetic dataset trees for tests.
 
 Counterpart of ``codeps_tpu/data/synthetic.py``: tiny on-disk trees in the
-Cityscapes and KITTI-360 layouts, so the readers run end to end without
-real data. The same seeds give the same files as the JAX
+Cityscapes, KITTI-360 and SemKITTI-DVPS layouts, so the readers run end to
+end without real data. The same seeds give the same files as the JAX
 package's helpers. PIL and cv2 are imported inside the functions that
 write files.
 """
@@ -141,4 +141,43 @@ def make_kitti360_tree(root: Path, sequence: str = "03",
         f.write("R_rect_00: 1 0 0 0 1 0 0 0 1\n")
     np.savetxt(calib_dir / "calib_cam_to_velo.txt",
                np.hstack([np.eye(3), np.zeros((3, 1))]).reshape(1, -1))
+    return root
+
+
+def make_semkitti_tree(root: Path, sequence: str = "07",
+                       num_frames: int = 5, width: int = 96,
+                       height: int = 64, seed: int = 2) -> Path:
+    """Create a minimal SemKITTI-DVPS tree."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    depth_dir = root / "data_2d_depth" / sequence
+    rgb_dir = root / "data_2d_raw" / sequence / "image_2"
+    sem_dir = root / "data_2d_semantics" / sequence
+    for directory in (depth_dir, rgb_dir, sem_dir):
+        directory.mkdir(parents=True, exist_ok=True)
+
+    # Depth and labels exist for every frame; the reader's
+    # [max_offset:-max_offset] slice keeps the neighbours in range.
+    for number in range(num_frames + 2):
+        _random_rgb(rng, width, height).save(rgb_dir / f"{number:06d}.png")
+        depth = rng.integers(256, 80 * 256, (height, width))
+        cv2.imwrite(str(depth_dir / f"{number:06d}_depth.png"),
+                    depth.astype(np.uint16))
+        semantic, instance = _blocky_labels(
+            rng, width, height,
+            raw_classes=[8, 10, 12, 14, 16], num_instances=2,
+            thing_raw_ids=[0, 5])
+        cv2.imwrite(str(sem_dir / f"{number:06d}_class.png"),
+                    semantic.astype(np.uint16))
+        cv2.imwrite(str(sem_dir / f"{number:06d}_instance.png"),
+                    instance.astype(np.uint16))
+
+    fx, fy = 60.0, 60.0
+    cx, cy = width / 2, height / 2
+    with open(root / "data_2d_raw" / sequence / "calib.txt", "w",
+              encoding="utf-8") as f:
+        f.write("P0: 0 0 0 0 0 0 0 0 0 0 0 0\n")
+        f.write("P1: 0 0 0 0 0 0 0 0 0 0 0 0\n")
+        f.write(f"P2: {fx} 0 {cx} 0 0 {fy} {cy} 0 0 0 1 0\n")
     return root

@@ -1,1 +1,2 @@
-"""Weight bridge from the JAX parameter trees and image visualizations."""
+"""Checkpoints, the weight bridge from the JAX parameter trees, logging
+and image visualizations."""

@@ -3,9 +3,9 @@
 Counterpart of ``scripts/infer.py``: the ``CodepsNet`` facade's eval
 forward over every image, writing per-image panels (RGB, depth,
 semantic, panoptic) and optionally the raw predictions as ``.npz``.
-``--checkpoint`` takes a checkpoint in the reference's layout, a ``.pth``
-holding ``{"state_dict": {module_name: state_dict}}``; modules it lacks
-keep their seeded initialization.
+``--checkpoint`` takes what ``io/checkpoint.pretrained_from_checkpoints``
+loads (a reference-layout ``.pth``, the JAX package's ``.pkl``, or
+``module:path``); keys it lacks keep their seeded initialization.
 
 Example:
     python -m codeps_torch.scripts.infer --checkpoint codeps.pth \
@@ -16,20 +16,16 @@ Example:
 from __future__ import annotations
 
 import argparse
-import re
 from pathlib import Path
 
 import numpy as np
-import torch
-
-# Coarser disparity convs of the reference depth head; nothing reads them.
-_UNUSED_KEYS = re.compile(r"^dispconvs\.[123]\.")
 
 
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--checkpoint", required=True,
-                        help="reference-layout .pth checkpoint")
+                        help="checkpoint: path or module:path (reference "
+                             ".pth or the JAX package's .pkl)")
     parser.add_argument("--filename_config", required=True,
                         help="YAML config (model geometry + label mode)")
     parser.add_argument("--images", required=True,
@@ -58,24 +54,6 @@ def list_images(spec: str) -> list[Path]:
     return files
 
 
-def load_checkpoint(modules, path: str) -> list[str]:
-    """Load every module the checkpoint holds, strictly apart from the
-    depth head's unused ``dispconvs.{1,2,3}``; returns the names loaded.
-    Reference checkpoints pickle more than tensors (config, optimizer
-    state), so they are unpickled in full: load only trusted files."""
-    state = torch.load(path, map_location="cpu", weights_only=False)
-    loaded = []
-    for name in modules.module_names():
-        sd = state["state_dict"].get(name)
-        if sd is None:
-            continue
-        if name == "depth_head":
-            sd = {k: v for k, v in sd.items() if not _UNUSED_KEYS.match(k)}
-        getattr(modules, name).load_state_dict(sd, strict=True)
-        loaded.append(name)
-    return loaded
-
-
 def main(argv=None):
     args = parse_args(argv)
     from PIL import Image
@@ -83,6 +61,7 @@ def main(argv=None):
     from codeps_torch.config import load_config
     from codeps_torch.data import get_labels
     from codeps_torch.device import resolve_device
+    from codeps_torch.io.checkpoint import pretrained_from_checkpoints
     from codeps_torch.io.visualizations import (colorize_depth,
                                                 colorize_panoptic,
                                                 colorize_semantic)
@@ -96,7 +75,7 @@ def main(argv=None):
 
     modules = init_params(build_modules(cfg, len(labels), device=device),
                           seed=0, device=device)
-    loaded = load_checkpoint(modules, args.checkpoint)
+    loaded = pretrained_from_checkpoints([args.checkpoint], modules, cfg)
     print(f"Loaded {', '.join(loaded) or 'no modules'} from "
           f"{args.checkpoint}")
     norm = cfg.dataset.normalization

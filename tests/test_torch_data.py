@@ -1,7 +1,7 @@
 """The port's data layer against ``codeps_tpu``'s: center/offset ground
 truth, the numpy color jitter against the PIL one, flips, histogram
-matching, the low-contrast check, the synthetic trees and the KITTI-360
-and Cityscapes readers.
+matching, the low-contrast check, the synthetic trees, the KITTI-360,
+Cityscapes and SemKITTI-DVPS readers, and the loader's batches.
 
 Tolerances: exact everywhere, but the hue jitter, which may differ by 1
 (one level of a uint8 channel): Pillow's HSV conversions mix float and
@@ -16,7 +16,9 @@ from PIL import Image
 
 from codeps_tpu.config import gen_config as jax_gen_config
 from codeps_tpu.data import Cityscapes as JaxCityscapes
+from codeps_tpu.data import DataLoader as JaxDataLoader
 from codeps_tpu.data import Kitti360 as JaxKitti360
+from codeps_tpu.data import SemKittiDvps as JaxSemKittiDvps
 from codeps_tpu.data import dataset as jdataset
 from codeps_tpu.data import preprocessing as jprep
 from codeps_tpu.data import synthetic as jsynthetic
@@ -25,6 +27,8 @@ from codeps_torch.config import gen_config
 from codeps_torch.data import dataset, preprocessing, synthetic
 from codeps_torch.data.cityscapes import Cityscapes
 from codeps_torch.data.kitti_360 import Kitti360
+from codeps_torch.data.loader import DataLoader, collate_batch
+from codeps_torch.data.sem_kitti_dvps import SemKittiDvps
 
 HUE_TOL = 1
 
@@ -199,12 +203,16 @@ def trees(tmp_path_factory):
             "cs_jax": jsynthetic.make_cityscapes_tree(tmp / "cs_jax",
                                                       num_frames=3),
             "k360_jax": jsynthetic.make_kitti360_tree(tmp / "k360_jax",
-                                                      num_frames=4)}
+                                                      num_frames=4),
+            "sk": synthetic.make_semkitti_tree(tmp / "sk", num_frames=4),
+            "sk_jax": jsynthetic.make_semkitti_tree(tmp / "sk_jax",
+                                                    num_frames=4)}
 
 
 def test_synthetic_trees_match(trees):
     for ours_root, ref_root in ((trees["cs"], trees["cs_jax"]),
-                                (trees["k360"], trees["k360_jax"])):
+                                (trees["k360"], trees["k360_jax"]),
+                                (trees["sk"], trees["sk_jax"])):
         ours = sorted(p.relative_to(ours_root) for p in ours_root.rglob("*")
                       if p.is_file())
         ref = sorted(p.relative_to(ref_root) for p in ref_root.rglob("*")
@@ -222,6 +230,10 @@ def _cfgs(trees, name):
         if name == "kitti_360":
             cfg.dataset.name = "kitti_360"
             cfg.dataset.path = str(trees["k360"])
+            cfg.dataset.feed_img_size = [32, 48]
+        elif name == "sem_kitti_dvps":
+            cfg.dataset.name = "sem_kitti_dvps"
+            cfg.dataset.path = str(trees["sk"])
             cfg.dataset.feed_img_size = [32, 48]
         else:
             cfg.dataset.name = "cityscapes"
@@ -286,6 +298,65 @@ def test_cityscapes_reader_matches(trees, augment):
         if not augment:
             ref["rgb"] = {o: np.asarray(v) for o, v in ref["rgb"].items()}
         _assert_samples_equal(ours, ref)
+
+
+@pytest.mark.parametrize("label_mode", ["codeps", "cityscapes"])
+@pytest.mark.parametrize("augment", [False, True])
+def test_semkitti_reader_matches(trees, augment, label_mode):
+    jcfg, pcfg = _cfgs(trees, "sem_kitti_dvps")
+    ref_ds = JaxSemKittiDvps("sequence", jcfg.dataset, return_depth=True,
+                             sequences=["07"], label_mode=label_mode)
+    ours_ds = SemKittiDvps("sequence", pcfg.dataset, return_depth=True,
+                           sequences=["07"], label_mode=label_mode)
+    assert len(ours_ds) == len(ref_ds) > 0
+    assert ours_ds.ignore_classes == ref_ds.ignore_classes
+    assert ours_ds.thing_classes == ref_ds.thing_classes
+    for index in range(len(ref_ds)):
+        random.seed(index)
+        ref = ref_ds.__getitem__(index, do_augmentation=augment,
+                                 do_network_preparation=augment)
+        ours = ours_ds.__getitem__(index, do_augmentation=augment,
+                                   do_network_preparation=augment,
+                                   rng=random.Random(index))
+        if not augment:
+            ref["rgb"] = {o: np.asarray(v) for o, v in ref["rgb"].items()}
+        assert {"depth", "instance", "camera_model"} <= set(ours)
+        assert (ours["depth"] > 0).any()
+        _assert_samples_equal(ours, ref)
+
+
+def test_loader_batches_match(trees):
+    """One seed, shuffled, augmented Cityscapes batches: the threaded
+    path and the worker processes give the JAX loader's batches."""
+    jcfg, pcfg = _cfgs(trees, "cityscapes")
+    ref_ds = JaxCityscapes("train", jcfg.dataset, return_depth=True)
+    ours_ds = Cityscapes("train", pcfg.dataset, return_depth=True)
+
+    def batches(loader_cls, dataset, **kwargs):
+        random.seed(5)
+        np.random.seed(5)
+        loader = loader_cls(dataset, batch_size=2, offsets=[1], seed=3,
+                            drop_last=False, **kwargs)
+        return len(loader), list(loader)
+
+    for kwargs in ({}, {"num_workers": 2},
+                   {"num_shards": 2, "shard_index": 1}):
+        n_ref, ref = batches(JaxDataLoader, ref_ds, **kwargs)
+        n_ours, ours = batches(DataLoader, ours_ds, **kwargs)
+        assert n_ours == n_ref == len(ref) == len(ours) > 0, kwargs
+        for ours_batch, ref_batch in zip(ours, ref):
+            assert set(ours_batch) == set(ref_batch)
+            for key, value in ref_batch.items():
+                assert ours_batch[key].dtype == value.dtype, key
+                np.testing.assert_array_equal(ours_batch[key], value,
+                                              err_msg=f"{kwargs} {key}")
+    samples = [ours_ds.__getitem__(i, do_augmentation=False,
+                                   do_network_preparation=False)
+               for i in range(2)]
+    batch = collate_batch(samples)
+    assert batch["frames"].dtype == np.uint8
+    assert batch["frames"].shape == (2, 3, 32, 64, 3)
+    assert batch["depth_gt"].shape == (2, 32, 64)
 
 
 def test_only_rgb_readers_match(trees):

@@ -100,7 +100,13 @@ STREAM_MODULES = ("codeps_torch.tasks.adapt_loop",
                   "codeps_torch.data.kitti_360",
                   "codeps_torch.data.cityscapes",
                   "codeps_torch.data.synthetic",
-                  "codeps_torch.evaluation.panoptic_metrics")
+                  "codeps_torch.evaluation.panoptic_metrics",
+                  "codeps_torch.data.sem_kitti_dvps",
+                  "codeps_torch.data.loader",
+                  "codeps_torch.tasks.validate",
+                  "codeps_torch.io.checkpoint",
+                  "codeps_torch.io.logging",
+                  "codeps_torch.scripts.adapt")
 
 
 @pytest.mark.parametrize("module", STREAM_MODULES)

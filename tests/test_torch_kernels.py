@@ -51,6 +51,9 @@ def _cases():
     cases["ragged_rows_37"] = [one(0.7, height=37, width=200)]
     cases["k_1"] = [one(1.0, k=1)]
     cases["k_2048"] = [one(0.3, k=2048, height=16, width=128)]
+    # the widths of the SemKITTI-DVPS frames and of Cityscapes val
+    cases["width_1280"] = [one(0.7, height=16, width=1280)]
+    cases["width_1024"] = [one(0.7, height=16, width=1024)]
     cases = {name: tuple(torch.from_numpy(np.stack(parts))
                          for parts in zip(*images))
              for name, images in cases.items()}
@@ -202,6 +205,25 @@ def test_main_paths_hand_fusion_the_head_planes():
         planes = grouping.offset_planes(offsets)
         assert planes.data_ptr() == offsets.data_ptr()
     assert grouping.group_pixels_cuda.copies == copies
+
+
+@pytest.mark.parametrize("size", [(384, 1280), (512, 1024)])
+def test_validation_hands_the_kernel_aligned_gt_planes(size):
+    """Validation uploads the GT offsets as (2, H, W) planes: at the widths
+    of the SemKITTI-DVPS frames and of Cityscapes val the kernel reads
+    them in place, 16-byte aligned with W % 4 == 0 (its vector path)."""
+    from codeps_torch.tasks.validate import _to_device
+    height, width = size
+    offsets = np.random.default_rng(1).normal(
+        0, 5, (1, height, width, 2)).astype(np.float32)
+    batch = _to_device({"offset": offsets}, "cpu")
+    copies = grouping.group_pixels_cuda.copies
+    planes = grouping.offset_planes(batch["offset"])
+    assert grouping.group_pixels_cuda.copies == copies
+    assert planes.data_ptr() == batch["offset"].data_ptr()
+    assert planes.data_ptr() % 16 == 0 and width % 4 == 0
+    np.testing.assert_array_equal(planes.permute(0, 2, 3, 1).numpy(),
+                                  offsets)
 
 
 def test_group_pixels_cuda_rejects_cpu_tensors():
