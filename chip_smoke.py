@@ -42,7 +42,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     recomputed here, the depth and pose teachers equal to the student, the
     grouping kernel launched once per step with no layout copy, the depth
     metrics finite and the confusion matrix summing to H*W. Prints the
-    step latency, steps/s and peak memory. Then one step at 64x192
+    step latency, steps/s and peak memory, then the same in float32 from
+    the same starting weights. Then one step at 64x192
     (target) and 64x128 (source) from the same weights, batch and
     automask noise on the card and on the CPU, whose losses must agree;
  7. adaptation stream: the port's ``AdaptationRunner`` streams a
@@ -94,16 +95,45 @@ Phases, in order; any failure ends the run with a non-zero exit:
     panoptic map holds thing segments and scores PQ 1 against itself.
     Prints the stream's frame latency and frames/s, the validation time per
     batch (host clock, median) of both splits, both metric dicts and the
-    peak memory, then the parts of a validation batch timed on their own
-    (item, upload, eval forward, GT map, readback with PQ). Then a ResNet-18 ``run_validation`` at 64x192 over 2
+    peak memory, the kernel's device time at 1x384x1280 and 1x512x1024
+    (the last call of the stream and of the source val), then the parts
+    of a validation batch timed on their own (item, upload, eval forward,
+    GT map, readback with PQ). Then a ResNet-18 ``run_validation`` at 64x192 over 2
     held-out batches on the card and on the CPU: the GT and the predicted
     panoptic maps equal, the confusion matrices within NEAR_TIE_SHARE of
     their pixels, PQ/SQ/RQ, mIoU and abs_rel within 0.005 and the other
     depth means within DEPTH_REL_TOL relative;
- 9. the ``kernels`` line (with the per-n times and bounds and the layout
-    copies on each path), the ``adapt_step``, ``adapt_stream`` and
-    ``adapt_cli`` lines, then the last line
+ 9. pretraining: ``codeps_torch.scripts.train.run_training`` (what
+    ``python -m codeps_torch.scripts.train`` runs after reading its files)
+    with ``cfg/train_cityscapes.yaml``'s values set in code (ResNet-101,
+    ResNet-18 pose net, depth, pose, GUDA semantic and instance heads with
+    the thing mask, batch 6 at 512x1024, bfloat16 by the package default)
+    on a Cityscapes-like train set of TRAIN_STEPS x 6 images and a val set
+    of TRAIN_VAL_IMAGES made in memory: TRAIN_STEPS steps (an epoch; the
+    first TRAIN_WARMUP are warm-up), a checkpoint under ``chiprun_out/``
+    (deleted after), validation with losses at batch 2 (2 grouping
+    launches a batch at 2x512x1024, each equal to the plain version, no
+    layout copy; none in the steps). Then the run resumes from that
+    checkpoint: the loaded tensors, Adam moments, step and generator state
+    must be bit-equal to the saved ones, and it takes one more step. Then
+    one float32 train step at 64x128 (ResNet-18, batch 2) from the same
+    weights, batch and noise on the card and on the CPU: losses within
+    1e-4 relative, BatchNorm running statistics within 1e-5. Then
+    ``cfg/train_cityscapes_depth_only.yaml``'s values (ResNet-18, only
+    RGB, batch 1 at 192x640) for DEPTH_ONLY_STEPS steps. Prints the step's
+    median host-clock time and images/s, the loop's time a step, peak
+    memory, the loader's item time, validation time per batch and the
+    kernel's device time at 2x512x1024;
+10. the ``kernels`` line (with the per-n times and bounds, the times at
+    the CLI's and pretraining's shapes and the layout copies on each
+    path), the ``adapt_step``, ``adapt_stream``, ``adapt_cli`` and
+    ``train`` lines, then the last line
     ``{"ok": true, "device": {...}}``.
+
+The full-width runs compute in bfloat16, the package default
+(``cfg.tpu.compute_dtype``, as the JAX package's); phase 6 also times the
+step in float32. Every comparison of the card with the CPU runs in
+float32.
 
 Random weights from the JAX package's initialization scheme let the
 activations grow block by block through ResNet-101 (eval-mode BatchNorm
@@ -189,6 +219,19 @@ SEMKITTI_P2 = (707.0912, 0.0, 601.8873, 46.88783, 0.0, 707.0912, 183.1104,
 # bands; person and car rectangles
 SEMKITTI_LABELS = {"stuff": (12, 14, 16, 10, 8), "thing_ids": (5, 0),
                    "stuff_instances": False}
+# Pretraining (phase 9): cfg/train_cityscapes.yaml at its feed size, an
+# epoch of TRAIN_STEPS steps of its batch (the first TRAIN_WARMUP not
+# timed), a val set of TRAIN_VAL_IMAGES; cfg/train_cityscapes_depth_only
+# .yaml's feed size and steps.
+TRAIN_BATCH = 6
+TRAIN_STEPS = 8
+TRAIN_WARMUP = 2
+TRAIN_VAL_IMAGES = 4
+DEPTH_ONLY_SIZE = (192, 640)
+DEPTH_ONLY_STEPS = 3
+# card against CPU, one float32 train step: losses, BatchNorm statistics
+TRAIN_REL_TOL = 1e-4
+TRAIN_STAT_TOL = 1e-5
 # other depth means, card against CPU (tests/test_torch_validate.py)
 DEPTH_REL_TOL = 1e-3
 # share of pixels whose argmax may flip between two float32 devices
@@ -272,24 +315,66 @@ def grouping_bound(num_valid):
             "operations" if ops_ms > bytes_ms else "bytes", moved, ops)
 
 
+def grouping_bound_batch(batch, height, width, valid_per_image):
+    """(bound_ms, bound_by) of grouping a (batch, height, width) map against
+    TOP_K slots an image, with the images' valid-center counts: offsets
+    read and ids written once, centers and flags read once; 5 FP32
+    operations per (pixel, valid center)."""
+    moved = batch * (height * width * (8 + 4) + TOP_K * (8 + 1))
+    ops = 5 * height * width * sum(valid_per_image)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "operations" if ops_ms > bytes_ms else "bytes")
+
+
+def time_grouping_call(torch, call):
+    """(device ms, bound ms, bound by, valid centers) of one recorded
+    grouping call (yx, valid, offsets)."""
+    from codeps_torch.ops import grouping
+    yx, valid, offsets = call
+    ms = device_ms(torch, lambda: grouping.group_pixels_cuda(
+        yx, valid, offsets), iters=100)
+    counts = [int(v) for v in valid.sum(1)]
+    bound_ms, bound_by = grouping_bound_batch(*offsets.shape[:3], counts)
+    return ms, bound_ms, bound_by, counts
+
+
 def calibrate_batch_norm(torch, modules, image):
-    """Set every BatchNorm's running statistics to those of its input on
-    ``image`` (B, H, W, 3 uint8): one forward in train mode with
-    cumulative averaging, then back to eval."""
+    """Set every BatchNorm's running statistics to the mean and the
+    unbiased variance of its input on ``image`` (B, H, W, 3 uint8), as
+    torch's own BatchNorm update sets them: one forward in train mode,
+    then back to eval. (The port's train-mode update takes Flax's biased
+    variance. Calibrated with it, phase 6's 64x192 replay features of
+    these random weights, pooled from a network calibrated on the image
+    it evaluates, nearly cancel, and the card and the CPU then differ
+    by twice the bound of that check.)"""
     from codeps_torch.ops.normalize import maybe_normalize
     norms = [m for m in modules.modules()
              if isinstance(m, torch.nn.BatchNorm2d)]
-    for bn in norms:
-        bn.reset_running_stats()
-        bn.momentum = None
+    stats = {}
+
+    def capture(bn, args):
+        stats[bn] = torch.var_mean(args[0].float(), dim=(0, 2, 3),
+                                   correction=1)
+    hooks = [bn.register_forward_pre_hook(capture) for bn in norms]
     x = maybe_normalize(torch.from_numpy(image).to(
         next(modules.parameters()).device)).permute(0, 3, 1, 2)
     modules.train()
+    try:
+        with torch.no_grad():
+            modules.instance_head(modules.backbone_po_depth(x))
+    finally:
+        modules.eval()
+        for hook in hooks:
+            hook.remove()
     with torch.no_grad():
-        modules.instance_head(modules.backbone_po_depth(x))
-    modules.eval()
-    for bn in norms:
-        bn.momentum = 0.1
+        for bn in norms:
+            bn.reset_running_stats()
+            if bn in stats:
+                var, mean = stats[bn]
+                bn.running_mean.copy_(mean)
+                bn.running_var.copy_(var)
 
 
 def call_ms(torch, fn, iters, warmup):
@@ -807,6 +892,7 @@ def drive_cli(torch, cfg, datasets, checkpoint, saved, device):
             part["max_abs_err"] = max(part["max_abs_err"], int(
                 (out.long() - ref.long()).abs().max()))
             assert torch.equal(out, ref), f"kernel != plain in {name}"
+        part["last_call"] = part["calls"][-1][:3]
         del part["calls"]
     return result, parts
 
@@ -861,6 +947,7 @@ def small_validation(torch, device, rng):
     import numpy as np
     size = (64, 192)
     cfg = semkitti_config(size, (64, 128), layers=18)
+    cfg.tpu.compute_dtype = "float32"
     _, val_target, _, _ = semkitti_datasets(cfg, SEED)
     val = ReplayBuffer(val_target, cfg.adapt, mode="val")
     cpu_modules = init_params(build_modules(cfg, NUM_CLASSES, device="cpu"),
@@ -1115,6 +1202,210 @@ def device_busy(torch, events):
     return busy, (spans[0][0] if spans else 0.0), (end or 0.0)
 
 
+def train_config(size, layers=101, batch=TRAIN_BATCH):
+    """cfg/train_cityscapes.yaml's values set in code over the port's
+    pretraining defaults (which give the ResNet-18 pose net, GUDA fusion,
+    the ``codeps`` labels and bfloat16). The loader runs one producer
+    thread: datasets made in memory go to no worker process."""
+    from codeps_torch.config import get_cfg_defaults
+    cfg = get_cfg_defaults()
+    model = cfg.model
+    model.make_depth = model.make_semantic = model.make_instance = True
+    model.make_sflow = False
+    model.instance_head.use_thing_mask = True
+    model.po_depth_net.params.nof_layers = layers
+    cfg.train.nof_epochs = 600
+    cfg.train.batch_size_per_gpu = batch
+    cfg.train.nof_workers_per_gpu = 0
+    cfg.train.optimizer.learning_rate = 1e-4
+    cfg.train.scheduler.type = "StepLR"
+    cfg.train.scheduler.step_lr.step_size = 600
+    cfg.val.batch_size_per_gpu = 2
+    cfg.dataset.name = "cityscapes"
+    cfg.dataset.feed_img_size = list(size)
+    cfg.semantics.class_weights = [1.0] * NUM_CLASSES
+    cfg.semantics.top_k = 0.2
+    cfg.depth.num_recon_scales = 5
+    for key, value in (("depth_recon", 10.0), ("depth_smth", 0.001),
+                       ("flow_smth", 10.0), ("flow_sparsity", 10.0),
+                       ("semantic", 1.0), ("center", 20.0),
+                       ("offset", 0.1), ("thing_mask", 0.5)):
+        cfg.losses.weights[key] = value
+    cfg.visualization.scale = 0.5
+    cfg.tpu.remat = True
+    assert model.pose_sflow_net.params.nof_layers == 18
+    assert model.semantic_head.use_guda_fusion
+    assert cfg.dataset.label_mode == "codeps"
+    assert cfg.tpu.compute_dtype == "bfloat16"
+    return cfg
+
+
+def depth_only_config():
+    """cfg/train_cityscapes_depth_only.yaml's values set in code."""
+    cfg = train_config(DEPTH_ONLY_SIZE, layers=18, batch=1)
+    cfg.model.make_semantic = cfg.model.make_instance = False
+    cfg.train.nof_epochs = 20
+    cfg.train.scheduler.step_lr.step_size = 15
+    cfg.dataset.return_only_rgb = True
+    cfg.losses.weights.depth_recon = 10.0
+    cfg.losses.weights.depth_smth = 0.001
+    return cfg
+
+
+def train_datasets(cfg, train_images, val_images, seed):
+    """(train, val): the port's Cityscapes reader on images made in memory
+    from ``seed`` at the config's feed size (``memory_cityscapes``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    train = memory_cityscapes(cfg.dataset, "train", train_images, rng)
+    val = memory_cityscapes(cfg.dataset, "val", val_images, rng)
+    for dataset in (train, val):
+        dataset.return_only_rgb = cfg.dataset.return_only_rgb
+    return train, val
+
+
+def drive_training(torch, cfg, datasets, device, **kwargs):
+    """``scripts/train.run_training`` on ``datasets`` with its parts
+    counted: the grouping counts are set to 0 just before the steps and
+    before each validation and read just after; every grouping call is
+    checked against the plain version; each step's start and each
+    validation batch are timed. ``kwargs`` go to ``run_training``; a
+    ``check_resumed(state)`` among them runs before the first step.
+    Returns (the run's result, the parts' numbers)."""
+    import numpy as np
+    from codeps_torch.ops import grouping
+    from codeps_torch.ops import panoptic as panoptic_ops
+    from codeps_torch.scripts import train as train_cli
+    check_resumed = kwargs.pop("check_resumed", None)
+    parts = {"steps": {"starts": []}, "val": []}
+    calls = []
+    group_pixels = panoptic_ops.group_pixels
+    make_train_step = train_cli.make_train_step
+    validate = train_cli.run_validation
+
+    def recording(yx, valid, offsets):
+        out = group_pixels(yx, valid, offsets)
+        calls.append((yx.clone(), valid.clone(), offsets.clone(), out))
+        return out
+
+    def timed_step(*args, **step_kwargs):
+        step = make_train_step(*args, **step_kwargs)
+
+        def run(state, batch, noise=None):
+            if check_resumed is not None and not parts["steps"]["starts"]:
+                check_resumed(state)
+            parts["steps"]["starts"].append(time.perf_counter())
+            return step(state, batch, noise=noise)
+        return run
+
+    def counted_validation(cfg, modules, loader, *args, **val_kwargs):
+        torch.cuda.synchronize()
+        if not parts["val"]:
+            parts["steps"].update(
+                launches=grouping.group_pixels_cuda.launches,
+                copies=grouping.group_pixels_cuda.copies)
+        marks = []
+
+        def timed():
+            for batch in loader:
+                marks.append(time.perf_counter())
+                yield batch
+            marks.append(time.perf_counter())
+
+        grouping.group_pixels_cuda.launches = 0
+        grouping.group_pixels_cuda.copies = 0
+        first = len(calls)
+        metrics = validate(cfg, modules, timed(), *args, **val_kwargs)
+        torch.cuda.synchronize()
+        parts["val"].append({
+            "launches": grouping.group_pixels_cuda.launches,
+            "copies": grouping.group_pixels_cuda.copies,
+            "batch_s": [float(t) for t in np.diff(marks)],
+            "calls": len(calls) - first})
+        return metrics
+
+    panoptic_ops.group_pixels = recording
+    train_cli.make_train_step = timed_step
+    train_cli.run_validation = counted_validation
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grouping.group_pixels_cuda.launches = 0
+        grouping.group_pixels_cuda.copies = 0
+        t0 = time.perf_counter()
+        result = train_cli.run_training(cfg, *datasets, seed=SEED,
+                                        device=device, **kwargs)
+        torch.cuda.synchronize()
+        parts["seconds"] = time.perf_counter() - t0
+    finally:
+        panoptic_ops.group_pixels = group_pixels
+        train_cli.make_train_step = make_train_step
+        train_cli.run_validation = validate
+    parts["peak"] = torch.cuda.max_memory_allocated()
+    parts["steps"].setdefault("launches", grouping.group_pixels_cuda.launches)
+    parts["steps"].setdefault("copies", grouping.group_pixels_cuda.copies)
+    parts["shapes"] = sorted({tuple(off.shape[:3]) for _, _, off, _
+                              in calls})
+    parts["centers"] = [[int(n) for n in v.sum(1)] for _, v, _, _ in calls]
+    parts["max_abs_err"] = 0
+    for yx, valid, offsets, out in calls:
+        ref = grouping.group_pixels_plain(yx, valid, offsets)
+        parts["max_abs_err"] = max(parts["max_abs_err"], int(
+            (out.long() - ref.long()).abs().max()))
+        assert torch.equal(out, ref), "kernel != plain in pretraining"
+    parts["last_call"] = calls[-1][:3] if calls else None
+    return result, parts
+
+
+def train_batch(rng, batch, height, width):
+    """One pretraining batch in the loader's layout (uint8 frames)."""
+    import numpy as np
+    return {
+        "frames": rng.integers(0, 256, (batch, 3, height, width, 3),
+                               dtype=np.uint8),
+        "camera": np.tile(np.asarray([scaled_camera(
+            CITYSCAPES_CAMERA, (SOURCE_HEIGHT, SOURCE_WIDTH),
+            (height, width))], np.float32), (batch, 1)),
+        "semantic": rng.integers(0, NUM_CLASSES, (batch, height, width),
+                                 dtype=np.int32),
+        "semantic_weights": rng.uniform(1.0, 3.0, (batch, height, width))
+        .astype(np.float32),
+        "center": rng.uniform(0, 1, (batch, height, width, 1)).astype(
+            np.float32),
+        "offset": rng.normal(0, 20, (batch, height, width, 2)).astype(
+            np.float32),
+        "thing_mask": rng.integers(0, 2, (batch, height, width),
+                                   dtype=np.int32),
+    }
+
+
+def train_step_card_vs_cpu(torch, device, rng):
+    """One float32 train step at 64x128 (ResNet-18, batch 2) from the same
+    weights, batch and automask noise on the card and on the CPU:
+    (metrics, BatchNorm running statistics) per device."""
+    from codeps_torch.models import build_modules, init_params
+    from codeps_torch.tasks.state import make_train_state
+    from codeps_torch.tasks.train import make_train_step
+    size = (64, 128)
+    cfg = train_config(size, layers=18, batch=2)
+    cfg.tpu.compute_dtype = "float32"
+    batch = train_batch(rng, 2, *size)
+    cpu_modules = init_params(build_modules(cfg, NUM_CLASSES, device="cpu"),
+                              seed=SEED, device="cpu")
+    step = make_train_step(cfg, list(cfg.semantics.class_weights))
+    out = {}
+    for name, mods, dev in (("card", copy.deepcopy(cpu_modules), device),
+                            ("cpu", cpu_modules, torch.device("cpu"))):
+        state = make_train_state(mods, 1e-4, seed=SEED, device=dev)
+        metrics = step(state, batch, noise=numpy_noise(torch, SEED, dev))
+        stats = {f"{n}.{k}": v.cpu() for n in mods.module_names()
+                 for k, v in getattr(mods, n).state_dict().items()
+                 if k.endswith(("running_mean", "running_var"))}
+        out[name] = ({k: float(v) for k, v in metrics.items()
+                      if v.ndim == 0}, stats)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1229,6 +1520,7 @@ def main() -> int:
     small = [64, 128]
     small_cfg = slice_config()
     small_cfg.dataset.feed_img_size = small
+    small_cfg.tpu.compute_dtype = "float32"
     small_frames = rng.integers(0, 256, (2, 1, *small, 3), dtype=np.uint8)
     cpu_modules = init_params(build_modules(
         small_cfg, NUM_CLASSES, device="cpu"), seed=SEED, device="cpu")
@@ -1300,6 +1592,8 @@ def main() -> int:
     target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
                                                  SOURCE_WIDTH)
     cfg = adapt_config(target_size, source_size)
+    # the float32 step starts from the same weights
+    f32_modules = copy.deepcopy(modules)
     state, step = build_adapt(torch, modules, cfg, device)
     frozen = {name: [p.detach().clone() for p in
                      getattr(state.student, name).parameters()]
@@ -1363,11 +1657,38 @@ def main() -> int:
           f"{ADAPT_STEPS}): {step_ms:.3f} ms; all: "
           f"{[round(t * 1e3, 3) for t in step_seconds]}")
     print(f"adaptation steps per second: {1e3 / step_ms:.3f}")
-    print(f"adaptation peak device memory: {adapt_peak / 2**20:.1f} MiB")
-    del state, batch, metrics, results, stats, features, frozen, live0
+    print(f"adaptation peak device memory: {adapt_peak / 2**20:.1f} MiB "
+          f"(compute dtype {cfg.tpu.compute_dtype})")
+    del state, metrics, results, stats, features, frozen, live0
+
+    f32_cfg = adapt_config(target_size, source_size)
+    f32_cfg.tpu.compute_dtype = "float32"
+    for name in f32_modules.module_names():
+        getattr(f32_modules, name).compute_dtype = torch.float32
+    f32_state, f32_step = build_adapt(torch, f32_modules, f32_cfg, device)
+    f32_step(f32_state, batch)                             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    f32_seconds = []
+    for _ in range(ADAPT_STEPS):
+        t0 = time.perf_counter()
+        f32_metrics = f32_step(f32_state, batch)[0]
+        torch.cuda.synchronize()
+        f32_seconds.append(time.perf_counter() - t0)
+    assert all(math.isfinite(float(v)) for k, v in f32_metrics.items()
+               if k != "target_skipped")
+    f32_step_ms = statistics.median(f32_seconds) * 1e3
+    f32_peak = torch.cuda.max_memory_allocated()
+    print(f"adaptation step in float32 (TF32 off), same starting weights "
+          f"and batch: {f32_step_ms:.3f} ms (median of {ADAPT_STEPS}); all: "
+          f"{[round(t * 1e3, 3) for t in f32_seconds]}; peak "
+          f"{f32_peak / 2**20:.1f} MiB; bfloat16 / float32 time "
+          f"{step_ms / f32_step_ms:.3f}")
+    del f32_state, f32_step, f32_modules, f32_metrics, batch
 
     small_target, small_source = (64, 192), (64, 128)
     small_cfg = adapt_config(small_target, small_source)
+    small_cfg.tpu.compute_dtype = "float32"
     small_batch = adapt_batch(rng, small_target, small_source)
     noise = automask_noise(torch, rng, small_target, small_source,
                            small_cfg.depth.num_recon_scales)
@@ -1526,6 +1847,7 @@ def main() -> int:
 
     small_target, small_source = (64, 192), (64, 128)
     small_cfg = stream_config(small_target, small_source, layers=18)
+    small_cfg.tpu.compute_dtype = "float32"
     cpu_modules = init_params(build_modules(
         small_cfg, NUM_CLASSES, device="cpu"), seed=SEED, device="cpu")
     calibrate_batch_norm(torch, cpu_modules, rng.integers(
@@ -1670,6 +1992,19 @@ def main() -> int:
     cli_err = max(parts[name]["max_abs_err"]
                   for name in ("stream", "target_val", "source_val"))
     cli_labels = (runner.stuff_list, runner.thing_list)
+    by_shape = []
+    for name in ("stream", "source_val"):
+        yx, valid, offsets = parts[name]["last_call"]
+        t_ms, t_bound_ms, t_bound_by, counts = time_grouping_call(
+            torch, (yx, valid, offsets))
+        by_shape.append({"path": f"cli_{name}",
+                         "shape": list(offsets.shape[:3]),
+                         "valid_centers": counts, "ms": t_ms,
+                         "bound_ms": t_bound_ms, "bound_by": t_bound_by})
+        print(f"group_pixels, last call of the CLI's {name} "
+              f"{'x'.join(map(str, offsets.shape[:3]))}, {counts} valid of "
+              f"{TOP_K}: kernel device time {t_ms * 1e3:.3f} us; bound "
+              f"{t_bound_ms * 1e3:.3f} us ({t_bound_by})")
     from codeps_torch.data.replay_buffer import ReplayBuffer
     breakdown = {
         name: validation_breakdown(torch, cfg, runner.state.teacher, dataset,
@@ -1719,31 +2054,223 @@ def main() -> int:
         assert abs(card - cpu) <= tol, key
     print(f"phase 8: {time.perf_counter() - phase_start:.3f} s")
 
-    phase("9 result")
+    phase("9 pretraining")
+    phase_start = time.perf_counter()
+    from codeps_torch.scripts.train import run_training
+    train_size = (SOURCE_HEIGHT, SOURCE_WIDTH)
+    cfg = train_config(train_size)
+    datasets = train_datasets(cfg, TRAIN_STEPS * TRAIN_BATCH,
+                              TRAIN_VAL_IMAGES, SEED)
+    run_dir = Path(__file__).resolve().parent / "chiprun_out" / "train_smoke"
+    print(f"pretraining, cfg/train_cityscapes.yaml's values: ResNet-"
+          f"{cfg.model.po_depth_net.params.nof_layers}, batch "
+          f"{cfg.train.batch_size_per_gpu} at {train_size[0]}x"
+          f"{train_size[1]}, compute dtype {cfg.tpu.compute_dtype}; train "
+          f"{len(datasets[0])} images, val {len(datasets[1])} at batch "
+          f"{cfg.val.batch_size_per_gpu}")
+    # a checkpoint of the modules, Adam's moments and the meters is some
+    # 0.8 GiB: it goes once the resumed run has read it
+    try:
+        result, parts = drive_training(torch, cfg, datasets, device,
+                                       max_steps=TRAIN_STEPS,
+                                       run_dir=str(run_dir))
+        ckpt = Path(result["checkpoints"][0])
+        saved = load_checkpoint(str(ckpt))
+        print(f"checkpoint {ckpt.name}: {ckpt.stat().st_size / 2**20:.1f} "
+              f"MiB, training_meta {saved['training_meta']}")
+        assert saved["training_meta"] == {"epoch": 0,
+                                          "global_step": TRAIN_STEPS}
+        resumed_checks = {}
+
+        def check_resumed(state):
+            """The resumed run's state before its first step equals what
+            was saved, bit for bit."""
+            tensors = 0
+            for name in state.modules.module_names():
+                for key, value in getattr(state.modules,
+                                          name).state_dict().items():
+                    assert torch.equal(value.cpu(),
+                                       saved["state_dict"][name][key]), \
+                        f"resumed {name}.{key} != saved"
+                    tensors += 1
+            opt = state.optimizer.state_dict()
+            ref_opt = saved["state_dict"]["optimizer"]
+            assert set(opt["state"]) == set(ref_opt["state"])
+            for index, moments in ref_opt["state"].items():
+                for key in ("step", "exp_avg", "exp_avg_sq"):
+                    assert torch.equal(opt["state"][index][key].cpu(),
+                                       moments[key]), (index, key)
+            assert torch.equal(state.generator.get_state(),
+                               saved["state_dict"]["rng"])
+            assert state.step == TRAIN_STEPS, state.step
+            resumed_checks.update(tensors=tensors,
+                                  moments=len(ref_opt["state"]))
+
+        resumed, resumed_parts = drive_training(
+            torch, cfg, datasets, device, max_steps=TRAIN_STEPS + 1,
+            checkpoint=str(ckpt), check_resumed=check_resumed)
+    finally:
+        for path in sorted(run_dir.rglob("*"), reverse=True):
+            path.unlink() if path.is_file() else path.rmdir()
+        if run_dir.exists():
+            run_dir.rmdir()
+    del saved
+    assert resumed["global_step"] == TRAIN_STEPS + 1
+    print(f"resumed from {ckpt.name}: {resumed_checks['tensors']} module "
+          f"tensors, the Adam state of {resumed_checks['moments']} "
+          f"parameters, the step and the generator state bit-equal to the "
+          f"saved ones; one more step: " + ", ".join(
+              f"{k} {v:.6g}" for k, v in resumed["metrics"][0].items()))
+    steps = parts["steps"]
+    assert len(result["metrics"]) == TRAIN_STEPS
+    for metrics in result["metrics"] + resumed["metrics"]:
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        assert not bad, f"train metrics not finite: {bad}"
+    assert {"depth_recon", "depth_smth", "semantic", "center", "offset",
+            "thing_mask", "loss_total"} <= set(result["metrics"][0])
+    assert steps["launches"] == steps["copies"] == 0, steps
+    val = parts["val"][0]
+    val_batches = len(val["batch_s"])
+    assert val_batches == TRAIN_VAL_IMAGES // cfg.val.batch_size_per_gpu
+    assert val["launches"] == 2 * val_batches, val["launches"]
+    assert val["copies"] == 0, val["copies"]
+    assert parts["shapes"] == [(cfg.val.batch_size_per_gpu, *train_size)]
+    print(f"pretraining: grouping launches {steps['launches']} in "
+          f"{TRAIN_STEPS} steps; validation {val['launches']} in "
+          f"{val_batches} batches, layout copies {val['copies']}; kernel == "
+          f"plain on all {len(parts['centers'])} calls, shapes "
+          f"{parts['shapes']}, valid centers per call {parts['centers']}")
+    val_metrics = {k: float(v) for k, v in result["val"][0].items()
+                   if np.ndim(v) == 0}
+    bad = [k for k, v in val_metrics.items() if not math.isfinite(v)]
+    assert not bad, f"validation not finite: {bad}"
+    assert {"val_loss", "val_loss_depth_recon", "val_loss_semantic",
+            "val_loss_thing_mask", "sem_miou", "p_pq"} <= set(val_metrics)
+    timed = result["step_times"][TRAIN_WARMUP:]
+    train_step_ms = statistics.median(timed) * 1e3
+    loop_ms = statistics.median(np.diff(steps["starts"][TRAIN_WARMUP:])) \
+        * 1e3
+    val_ms = [t * 1e3 for t in val["batch_s"]]
+    item_ms = []
+    for index in range(3):
+        t0 = time.perf_counter()
+        datasets[0][index]
+        item_ms.append((time.perf_counter() - t0) * 1e3)
+    t_ms, t_bound_ms, t_bound_by, counts = time_grouping_call(
+        torch, parts["last_call"])
+    by_shape.append({"path": "train_val",
+                     "shape": list(parts["last_call"][2].shape[:3]),
+                     "valid_centers": counts, "ms": t_ms,
+                     "bound_ms": t_bound_ms, "bound_by": t_bound_by})
+    train_numbers = {
+        "config": "cfg/train_cityscapes.yaml",
+        "compute_dtype": cfg.tpu.compute_dtype,
+        "batch": cfg.train.batch_size_per_gpu, "size": list(train_size),
+        "step_ms": train_step_ms,
+        "images_per_s": cfg.train.batch_size_per_gpu / train_step_ms * 1e3,
+        "all_step_ms": [t * 1e3 for t in result["step_times"]],
+        "loop_ms": loop_ms, "peak_mib": parts["peak"] / 2**20,
+        "item_ms": statistics.median(item_ms),
+        "val_batch_ms": statistics.median(val_ms), "val_all_ms": val_ms,
+        "val_metrics": val_metrics,
+        "last_step": result["metrics"][-1]}
+    print(f"pretraining step (host clock, median of {len(timed)} after "
+          f"{TRAIN_WARMUP} warm-up): {train_step_ms:.3f} ms, "
+          f"{train_numbers['images_per_s']:.3f} images/s; all "
+          f"{[round(t, 3) for t in train_numbers['all_step_ms']]}; the "
+          f"loop's time a step (loader included) {loop_ms:.3f} ms; peak "
+          f"device memory {train_numbers['peak_mib']:.1f} MiB "
+          f"(tpu.remat not acted on)")
+    print(f"loader: a train item on its own {[round(t, 3) for t in item_ms]}"
+          f" ms; validation per batch (host clock, median of "
+          f"{len(val_ms)}) {train_numbers['val_batch_ms']:.3f} ms, all "
+          f"{[round(t, 3) for t in val_ms]}")
+    print("last step: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in result["metrics"][-1].items()))
+    print("validation: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in val_metrics.items()))
+    print(f"group_pixels, validation call "
+          f"{'x'.join(map(str, parts['last_call'][2].shape[:3]))}, "
+          f"{counts} valid of {TOP_K}: kernel device time "
+          f"{t_ms * 1e3:.3f} us; bound {t_bound_ms * 1e3:.3f} us "
+          f"({t_bound_by})")
+    train_launches = {"train": steps["launches"],
+                      "train_val": sum(v["launches"] for v in parts["val"])
+                      + sum(v["launches"] for v in resumed_parts["val"])}
+    train_copies = {"train": steps["copies"],
+                    "train_val": sum(v["copies"] for v in parts["val"])
+                    + sum(v["copies"] for v in resumed_parts["val"])}
+    train_err = max(parts["max_abs_err"], resumed_parts["max_abs_err"])
+    del result, resumed, datasets
+
+    small = train_step_card_vs_cpu(torch, device, rng)
+    for key, ref in small["cpu"][0].items():
+        card = small["card"][0][key]
+        err = abs(card - ref)
+        print(f"64x128 train step card vs CPU {key}: {card:.6g} vs "
+              f"{ref:.6g}, rel err {err / max(abs(ref), 1e-30):.3g}")
+        assert err <= TRAIN_REL_TOL * abs(ref), key
+    assert set(small["card"][0]) == set(small["cpu"][0])
+    stat_err = max(float((small["card"][1][k] - v).abs().max()
+                         / (1.0 + float(v.abs().max())))
+                   for k, v in small["cpu"][1].items())
+    print(f"64x128 train step card vs CPU BatchNorm running statistics: "
+          f"max |diff| / (1 + max |value|) {stat_err:.3g} (bound "
+          f"{TRAIN_STAT_TOL}) over {len(small['cpu'][1])} tensors")
+    assert stat_err <= TRAIN_STAT_TOL
+
+    depth_cfg = depth_only_config()
+    depth_data = train_datasets(depth_cfg, 8, 2, SEED)
+    depth_result = run_training(depth_cfg, *depth_data, seed=SEED,
+                                max_steps=DEPTH_ONLY_STEPS, device=device)
+    assert len(depth_result["metrics"]) == DEPTH_ONLY_STEPS
+    for metrics in depth_result["metrics"]:
+        assert set(metrics) == {"loss_total", "depth_recon", "depth_smth"}
+        assert all(math.isfinite(v) for v in metrics.values()), metrics
+    depth_numbers = {
+        "config": "cfg/train_cityscapes_depth_only.yaml",
+        "size": list(DEPTH_ONLY_SIZE),
+        "step_ms": statistics.median(depth_result["step_times"][1:]) * 1e3,
+        "last_step": depth_result["metrics"][-1]}
+    print(f"depth-only config ({DEPTH_ONLY_SIZE[0]}x{DEPTH_ONLY_SIZE[1]}, "
+          f"batch 1, only RGB): {DEPTH_ONLY_STEPS} steps, median after the "
+          f"first {depth_numbers['step_ms']:.3f} ms; last step " + ", ".join(
+              f"{k} {v:.6g}" for k, v in depth_result["metrics"][-1].items()))
+    del depth_result, depth_data
+    print(f"phase 9: {time.perf_counter() - phase_start:.3f} s")
+
+    phase("10 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
         "replaces": "codeps_tpu/ops/pallas/grouping.py:30",
         "launches": (launches + adapt_launches + stream_launches
-                     + sum(cli_launches.values())),
+                     + sum(cli_launches.values())
+                     + sum(train_launches.values())),
         "launches_by_path": {"serve": launches, "adapt": adapt_launches,
                              "stream": stream_launches,
                              **{f"cli_{k}": v
-                                for k, v in cli_launches.items()}},
+                                for k, v in cli_launches.items()},
+                             **train_launches},
         "copies_by_path": {"serve": copies, "adapt": adapt_copies,
                            "stream": stream_copies,
                            **{f"cli_{k}": v
-                              for k, v in cli_copies.items()}},
-        "exact": True, "max_abs_err": max(max_err, stream_err, cli_err),
+                              for k, v in cli_copies.items()},
+                           **train_copies},
+        "exact": True,
+        "max_abs_err": max(max_err, stream_err, cli_err, train_err),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
         "call_ms": kernel_call_ms,
-        "valid_centers": num_valid, "by_valid_centers": by_valid}]}))
+        "valid_centers": num_valid, "by_valid_centers": by_valid,
+        "by_shape": by_shape}]}))
     print(json.dumps({"adapt_step": {
         "ms": step_ms, "steps_per_s": 1e3 / step_ms,
         "peak_mib": adapt_peak / 2**20,
-        "all_ms": [t * 1e3 for t in step_seconds]}}))
+        "all_ms": [t * 1e3 for t in step_seconds],
+        "float32": {"ms": f32_step_ms, "peak_mib": f32_peak / 2**20,
+                    "all_ms": [t * 1e3 for t in f32_seconds]}}}))
     keep = ("frames", "frame_ms", "frame_min_ms", "frame_max_ms",
             "frames_per_s", "getitem_ms", "add_ms", "peak_mib")
     print(json.dumps({"adapt_stream": {
@@ -1763,6 +2290,9 @@ def main() -> int:
         "sem_miou": cli_values["sem_miou"],
         "d_abs_rel": cli_values["d_abs_rel"],
         "small_card_vs_cpu_agree": agree}}))
+    print(json.dumps({"train": {**train_numbers, "launches": train_launches,
+                                "copies": train_copies,
+                                "depth_only": depth_numbers}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -15,14 +15,17 @@ module's counterpart is found by name:
   losses/   photometric, smoothness, semantic, instance
   models/   ResNet encoders, depth/pose/semantic/instance heads, the facade
   evaluation/ depth, semantic and panoptic metrics, meters
-  tasks/    forward helpers, optimizer, state, the adaptation step, the
-            streaming runner, validation
-  io/       checkpoints, the weight bridge from the JAX trees, logging,
+  tasks/    forward helpers, optimizer, states, the pretraining step, the
+            adaptation step, the streaming runner, validation
+  io/       checkpoints (with the optimizer, generator and meters of a
+            run), the weight bridge from the JAX trees, logging,
             visualizations
-  scripts/  ``python -m codeps_torch.scripts.infer`` and ``...adapt``
+  scripts/  ``python -m codeps_torch.scripts.infer``, ``...adapt`` and
+            ``...train``
 
 Modules are NCHW inside; public functions take and return NHWC images and
-maps, as the JAX counterparts do. Entry points run on ``cuda`` unless the
+maps, as the JAX counterparts do. They compute in ``cfg.tpu.compute_dtype``
+(bfloat16 by default, as the JAX package's; ``models/precision.py``). Entry points run on ``cuda`` unless the
 caller passes ``device="cpu"``; without a card they raise.
 """
 

@@ -15,12 +15,18 @@ Counterpart of ``codeps_tpu/io/checkpoint.py``:
     shape-checked: a key the checkpoint lacks keeps its current value, a
     key the module lacks is ignored (the reference depth head's unused
     ``dispconvs.{1,2,3}``, for one), a shape mismatch raises;
-  - ``pretrained_from_checkpoints`` takes the CLI's ``module:path`` specs.
+  - ``pretrained_from_checkpoints`` takes the CLI's ``module:path`` specs;
+  - ``restore_opt_state``, ``restore_rng`` and ``restore_meters``
+    (``codeps_tpu/io/checkpoint.py:143-187``) resume a training run from
+    the optimizer, generator and meter state that ``save_checkpoint``
+    writes beside the modules. The optimizer state of a JAX ``.pkl`` (the
+    flat optax leaf list) goes through the weight bridge
+    (``io/from_jax.adam_state_from_jax``). A JAX PRNG key cannot seed a
+    ``torch.Generator`` to the same draws: ``restore_rng`` returns a
+    generator state only from the port's own checkpoints.
 
-Optimizer, RNG and meter state (``codeps_tpu/io/checkpoint.py:143-187``)
-come with the pretraining slice. Checkpoints are unpickled in full (they
-hold the config and, from the reference, more than tensors): load only
-trusted files.
+Checkpoints are unpickled in full (they hold the config and, from the
+reference, more than tensors): load only trusted files.
 """
 
 from __future__ import annotations
@@ -50,13 +56,29 @@ def make_modules_list(cfg) -> List[str]:
     return modules
 
 
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()
+    return tree
+
+
 def save_checkpoint(path: str, cfg, modules, epoch: int = 0,
-                    global_step: int = 0) -> None:
+                    global_step: int = 0,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    generator: Optional[torch.Generator] = None,
+                    meters: Optional[Dict[str, Any]] = None) -> None:
     """Write ``modules`` (a ``CodepsModules``) as a reference-layout
     ``.pth``: ``{"config": text, "state_dict": {module: state_dict},
     "training_meta": {"epoch", "global_step"}}``, tensors on the CPU. The
     config text is JSON, which YAML readers also read (the card machine
-    has no YAML writer)."""
+    has no YAML writer). ``state_dict`` also takes, when given, the
+    optimizer's state dict (``"optimizer"``), the generator's state
+    (``"rng"``) and the meters' state dicts (``"meters"``), where the JAX
+    package keeps them."""
     payload = {
         "config": json.dumps(cfg.to_dict(), indent=1, default=str),
         "state_dict": {
@@ -65,6 +87,14 @@ def save_checkpoint(path: str, cfg, modules, epoch: int = 0,
             for name in modules.module_names()},
         "training_meta": {"epoch": epoch, "global_step": global_step},
     }
+    if optimizer is not None:
+        payload["state_dict"]["optimizer"] = _to_cpu(
+            optimizer.state_dict())
+    if generator is not None:
+        payload["state_dict"]["rng"] = generator.get_state()
+    if meters is not None:
+        payload["state_dict"]["meters"] = {
+            name: meter.state_dict() for name, meter in meters.items()}
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     torch.save(payload, path)
@@ -152,3 +182,66 @@ def pretrained_from_checkpoints(checkpoint_specs: Sequence[str], modules,
         loaded += resume_from_checkpoint(
             state_dicts, modules, [module] if module else None)
     return loaded
+
+
+def restore_opt_state(checkpoint: Dict[str, Any], optimizer, modules, cfg,
+                      frozen_modules: Sequence[str] = ()) -> bool:
+    """Load the optimizer state of ``checkpoint`` into ``optimizer`` (Adam
+    over the parameters of the modules of ``modules`` not in
+    ``frozen_modules``, in module order); False when it holds none.
+
+    The port's own checkpoints hold torch's optimizer state dict. A JAX
+    ``.pkl`` holds optax's flat leaf list: its Adam moments map to
+    ``exp_avg``/``exp_avg_sq`` through the weight bridge and its count to
+    ``step``. Either must have been written for the same live modules.
+    """
+    saved = checkpoint["state_dict"].get("optimizer")
+    if saved is None:
+        return False
+    if isinstance(saved, dict) and "param_groups" in saved:
+        optimizer.load_state_dict(saved)
+        return True
+    from codeps_torch.io.from_jax import adam_state_from_jax
+    live = [name for name in modules.module_names()
+            if name not in frozen_modules]
+    state = adam_state_from_jax(saved, checkpoint["state_dict"]["params"],
+                                checkpoint["state_dict"].get(
+                                    "batch_stats", {}),
+                                live, cfg)
+    params = [p for name in live
+              for p in getattr(modules, name).parameters()]
+    if len(params) != sum(len(g["params"]) for g in optimizer.param_groups):
+        raise ValueError("the optimizer does not hold the live modules' "
+                         "parameters")
+    for name in live:
+        for key, param in getattr(modules, name).named_parameters():
+            moments = state[name][key]
+            optimizer.state[param] = {
+                "step": torch.tensor(float(moments["step"])),
+                "exp_avg": moments["exp_avg"].to(param.device),
+                "exp_avg_sq": moments["exp_avg_sq"].to(param.device)}
+    return True
+
+
+def restore_rng(checkpoint: Dict[str, Any]) -> Optional[torch.Tensor]:
+    """The generator state a port checkpoint saved (for
+    ``torch.Generator.set_state``), or None: no state was saved, or the
+    checkpoint is the JAX package's, whose PRNG key no torch generator can
+    continue."""
+    rng = checkpoint["state_dict"].get("rng")
+    if isinstance(rng, torch.Tensor) and rng.dtype == torch.uint8:
+        return rng
+    return None
+
+
+def restore_meters(checkpoint: Dict[str, Any],
+                   meters: Dict[str, Any]) -> Dict[str, Any]:
+    """Load the meter states ``save_checkpoint`` wrote into the live
+    ``meters`` that share their names."""
+    import numpy as np
+    saved = checkpoint["state_dict"].get("meters") or {}
+    for name, meter in meters.items():
+        if name in saved:
+            meter.load_state_dict({key: np.asarray(value)
+                                   for key, value in saved[name].items()})
+    return meters

@@ -9,6 +9,9 @@ checkpoint layout, which is also the layout of the port's modules:
   Flax depthwise (kh, kw, 1, C)   -> Conv2d weight (C, 1, kh, kw)
   BatchNorm scale / bias          -> weight / bias
   BatchNorm mean / var            -> running_mean / running_var
+
+Adam's moments are trees of the parameters' structure and take the same
+road (``adam_state_from_jax``).
 """
 
 from __future__ import annotations
@@ -172,3 +175,54 @@ def load_from_jax(modules, params: Mapping[str, Any],
     for name in modules.module_names():
         getattr(modules, name).load_state_dict(state_dicts[name], strict=True)
     return modules
+
+
+def _sorted_leaves(tree) -> list:
+    """Leaves of nested dicts in JAX's flattening order (sorted keys)."""
+    if isinstance(tree, Mapping):
+        return [leaf for key in sorted(tree)
+                for leaf in _sorted_leaves(tree[key])]
+    return [tree]
+
+
+def _unflatten_like(tree, leaves):
+    """``tree`` with its leaves, in JAX's order, taken from the iterator
+    ``leaves``."""
+    if isinstance(tree, Mapping):
+        return {key: _unflatten_like(tree[key], leaves)
+                for key in sorted(tree)}
+    return next(leaves)
+
+
+def adam_state_from_jax(opt_leaves, params: Mapping[str, Any],
+                        batch_stats: Mapping[str, Any], live, cfg
+                        ) -> Dict[str, Dict[str, Dict[str, Any]]]:
+    """torch Adam state per parameter from the flat optax leaf list that
+    the JAX package's ``save_checkpoint`` stores (a list, or the int-keyed
+    dict Orbax makes of it).
+
+    ``codeps_tpu/tasks/optim.build_optimizer`` is ``optax.adam`` (masked
+    to the trained modules when some are frozen), so the list is Adam's
+    count, its first moments over the trained modules' parameters, its
+    second moments over the same, and the schedule's count when the
+    learning rate is a schedule. ``live`` names those modules. Returns
+    ``{module: {parameter name: {"step", "exp_avg", "exp_avg_sq"}}}`` in
+    the port's layout.
+    """
+    if isinstance(opt_leaves, Mapping):
+        opt_leaves = [opt_leaves[key] for key in sorted(opt_leaves, key=int)]
+    trained = {name: params[name] for name in live}
+    count = len(_sorted_leaves(trained))
+    if len(opt_leaves) not in (1 + 2 * count, 2 + 2 * count):
+        raise ValueError(
+            f"{len(opt_leaves)} optimizer leaves do not fit Adam over the "
+            f"{count} parameters of {sorted(live)}: was the run's freezing "
+            "another?")
+    step = int(np.asarray(opt_leaves[0]))
+    moments = [state_dicts_from_jax(
+        _unflatten_like(trained, iter(opt_leaves[start:start + count])),
+        batch_stats, cfg) for start in (1, 1 + count)]
+    return {name: {key: {"step": step, "exp_avg": value,
+                         "exp_avg_sq": moments[1][name][key]}
+                   for key, value in moments[0][name].items()}
+            for name in live}

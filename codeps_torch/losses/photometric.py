@@ -1,8 +1,10 @@
 """Photometric (view-reconstruction) losses.
 
 Counterpart of ``codeps_tpu/losses/photometric.py:31-200`` (the
-reference's SSIMLoss and ReconstructionLoss), NCHW, in float32: the
-JAX package's optional bfloat16 image math is a TPU bandwidth measure.
+reference's SSIMLoss and ReconstructionLoss), NCHW. As there, the
+image-space math (pyramids, warp payload, SSIM and L1) runs in the
+``dtype`` the caller passes, the compute dtype of the config; geometry,
+the automask's minimum with its noise, and the means stay float32.
 
 The automask's identity tie-break noise (Monodepth2, 1e-5 normals) is
 drawn from a ``torch.Generator``, or taken from an injected ``noise``
@@ -79,7 +81,8 @@ def reconstruction_loss(intrinsics: torch.Tensor,
                         identity_noise_scale: float = 1e-5,
                         per_sample: bool = False,
                         generator: torch.Generator | None = None,
-                        noise: NoiseFn | None = None) -> torch.Tensor:
+                        noise: NoiseFn | None = None,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Multi-scale photometric loss with Monodepth2 auto-masking.
 
     The full-resolution depth is downscaled to each pyramid level. Per
@@ -97,13 +100,18 @@ def reconstruction_loss(intrinsics: torch.Tensor,
       generator: source of the identity noise when ``noise`` is None.
       noise: callable ``shape -> tensor`` giving the (B, 2, h, w) identity
         noise of each scale in turn, in place of the generator.
+      dtype: element type of the image-space math. The warp samples in
+        float32 (its taps are the image's values) and its result comes
+        back to ``dtype``; the errors go to float32 before the automask,
+        whose 1e-5 noise bfloat16 could not resolve.
 
     Returns:
       scalar float32 loss, or (B,) with ``per_sample``.
     """
     batch, _, height, width = images[0].shape
-    target = images[0]
-    total = images[0].new_zeros((batch,) if per_sample else ())
+    target = images[0].to(dtype)
+    total = torch.zeros((batch,) if per_sample else (),
+                        device=images[0].device)
     for s in range(num_scales):
         size = (height // 2 ** s, width // 2 ** s)
         intr_s = scale_intrinsics_to_size(intrinsics, (height, width), size)
@@ -113,17 +121,17 @@ def reconstruction_loss(intrinsics: torch.Tensor,
 
         recon_losses, frames_s = [], []
         for i, frame in enumerate(images[1:]):
-            frame_s = resize_bilinear_nchw(frame, size)
+            frame_s = resize_bilinear_nchw(frame.to(dtype), size)
             frames_s.append(frame_s)
             motion_s = None
             if object_motion_maps is not None:
                 motion_s = resize_bilinear_nchw(object_motion_maps[i], size)
-            pred = warp_image(intr_s, frame_s, depth_s, poses[i],
+            pred = warp_image(intr_s, frame_s.float(), depth_s, poses[i],
                               object_motion=motion_s)
-            recon_losses.append(photometric_error(pred, target_s, alpha,
-                                                  tstats))
+            recon_losses.append(photometric_error(pred.to(dtype), target_s,
+                                                  alpha, tstats).float())
         identity = torch.cat([photometric_error(f, target_s, alpha, tstats)
-                              for f in frames_s], dim=1)
+                              for f in frames_s], dim=1).float()
         if identity_noise_scale:
             if noise is not None:
                 draw = noise(tuple(identity.shape)).to(identity.device)

@@ -57,7 +57,8 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
                   class_weights: Sequence[float] | None = None,
                   ignore_labels: Sequence[int] | None = None,
                   top_k_percent_pixels: float = 1.0,
-                  ignore_index: int = 255) -> torch.Tensor:
+                  ignore_index: int = 255,
+                  dtype: torch.dtype | None = None) -> torch.Tensor:
     """Per-pixel weighted CE, then the mean of the top
     ``int(top_k_percent_pixels * B*H*W)`` pixel losses over the batch.
 
@@ -67,7 +68,13 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
       pixel_weights: (B, H, W).
       class_weights: one weight per class channel.
       ignore_labels: class channels to drop entirely.
+      dtype: element type of the per-pixel log-softmax and weighting (the
+        compute dtype of the config); None keeps the prediction's. The
+        top-k mean accumulates in float32 either way.
     """
+    if dtype is not None:
+        prediction = prediction.to(dtype)
+        pixel_weights = pixel_weights.to(dtype)
     if ignore_labels:
         prediction, target, class_weights = _apply_ignore_labels(
             prediction, target, class_weights, ignore_labels, ignore_index)

@@ -18,6 +18,7 @@ from torch import nn
 from codeps_torch.device import resolve_device
 from codeps_torch.models.heads import (DepthHead, InstanceHead, PoseHead,
                                        SemanticHead)
+from codeps_torch.models.precision import compute_dtype
 from codeps_torch.models.resnet import ResNetEncoder, make_encoder
 
 MODULE_NAMES = ("backbone_po_depth", "backbone_pose_sflow", "depth_head",
@@ -52,7 +53,9 @@ def build_modules(cfg, num_classes: int,
     """Construct the modules from a config tree on ``device`` (``cuda``
     unless given), in eval mode, with torch's default init; ``init_params``
     gives them seeded weights. With ``make_depth`` the pose backbone (two
-    RGB frames, 6 channels) and the pose head come with the depth head."""
+    RGB frames, 6 channels) and the pose head come with the depth head.
+    Every module computes in ``cfg.tpu.compute_dtype``
+    (``models/precision.py``)."""
     if cfg.model.make_sflow:
         raise NotImplementedError("the flow head is not ported yet")
     dev = resolve_device(device)
@@ -76,8 +79,11 @@ def build_modules(cfg, num_classes: int,
             instance_head = InstanceHead(
                 num_ch_enc,
                 use_thing_mask=cfg.model.instance_head.use_thing_mask)
-    return CodepsModules(backbone, backbone_pose, depth_head, pose_head,
-                         semantic_head, instance_head, num_classes).eval()
+    modules = CodepsModules(backbone, backbone_pose, depth_head, pose_head,
+                            semantic_head, instance_head, num_classes)
+    for name in modules.module_names():
+        getattr(modules, name).compute_dtype = compute_dtype(cfg)
+    return modules.eval()
 
 
 def _truncated_normal(shape, std: float,

@@ -17,6 +17,10 @@ these plain forms too:
   - the instance sub-heads apply their 1x1 conv before the last 2x
     align-corners upsampling, as the JAX package does.
 
+Each head runs its body in its ``compute_dtype`` (``models/precision.py``)
+and returns float32, as the JAX heads cast their full-resolution outputs;
+the pose head builds its transform from float32 parameters.
+
 Parameter names follow the reference checkpoints (``upconvs_1.4.0.weight``,
 ``semconv_guda.weight``, ``net.3.bias`` of the pose head,
 ``decoder.net.fuse_0.3.weight``, ``center_head.net.conv.bias``). The depth head keeps only
@@ -31,6 +35,8 @@ import torch
 from torch import nn
 
 from codeps_torch.geometry.pose import transformation_from_parameters
+from codeps_torch.models.precision import ComputeDtype
+from codeps_torch.models.resnet import BatchNorm2d
 from codeps_torch.ops.resize import (resize_bilinear_nchw,
                                      upsample_nearest_2x_nchw)
 
@@ -64,7 +70,7 @@ def _decoder_convs(num_ch_enc: Sequence[int], use_skips: bool):
     return nn.ModuleList(upconvs_0), nn.ModuleList(upconvs_1)
 
 
-class DepthHead(nn.Module):
+class DepthHead(ComputeDtype, nn.Module):
     """Monodepth2-style decoder with skips; returns (depth, disparity),
     each (B, 1, H, W) float32 at the input image's resolution."""
 
@@ -78,16 +84,18 @@ class DepthHead(nn.Module):
 
     def forward(self, feats: Sequence[torch.Tensor]):
         x = feats[-1]
-        for i in range(4, -1, -1):
-            x = upsample_nearest_2x_nchw(self.upconvs_0[i](x))
-            if self.use_skips and i > 0:
-                x = torch.cat([x, feats[i - 1]], dim=1)
-            x = self.upconvs_1[i](x)
-        disp = torch.sigmoid(self.dispconvs[0](x).float())
+        with self.autocast(x):
+            for i in range(4, -1, -1):
+                x = upsample_nearest_2x_nchw(self.upconvs_0[i](x))
+                if self.use_skips and i > 0:
+                    x = torch.cat([x, feats[i - 1]], dim=1)
+                x = self.upconvs_1[i](x)
+            x = self.dispconvs[0](x)
+        disp = torch.sigmoid(x.float())
         return disp_to_depth(disp), disp
 
 
-class SemanticHead(nn.Module):
+class SemanticHead(ComputeDtype, nn.Module):
     """Depth-decoder mirror with optional GUDA multi-scale fusion; returns
     softmax probabilities (B, C, H, W) float32 (the reference's CE applies
     log_softmax to these again)."""
@@ -110,24 +118,25 @@ class SemanticHead(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         x = feats[-1]
         stages = []
-        for i in range(4, -1, -1):
-            x = upsample_nearest_2x_nchw(self.upconvs_0[i](x))
-            if self.use_skips and i > 0:
-                x = torch.cat([x, feats[i - 1]], dim=1)
-            x = self.upconvs_1[i](x)
-            if i < 4:
-                stages.append(x)
-        if self.use_guda_fusion:
-            out_res = tuple(x.shape[-2:])
-            fused = torch.cat([resize_bilinear_nchw(f, out_res)
-                               for f in stages], dim=1)
-            logits = self.semconv_guda(fused)
-        else:
-            logits = self.semconv(x)
+        with self.autocast(x):
+            for i in range(4, -1, -1):
+                x = upsample_nearest_2x_nchw(self.upconvs_0[i](x))
+                if self.use_skips and i > 0:
+                    x = torch.cat([x, feats[i - 1]], dim=1)
+                x = self.upconvs_1[i](x)
+                if i < 4:
+                    stages.append(x)
+            if self.use_guda_fusion:
+                out_res = tuple(x.shape[-2:])
+                fused = torch.cat([resize_bilinear_nchw(f, out_res)
+                                   for f in stages], dim=1)
+                logits = self.semconv_guda(fused)
+            else:
+                logits = self.semconv(x)
         return torch.softmax(logits.float(), dim=1)
 
 
-class PoseHead(nn.Module):
+class PoseHead(ComputeDtype, nn.Module):
     """Squeeze + three convs + spatial mean -> 0.01 x (axis-angle,
     translation) -> (B, 4, 4) SE(3) transform.
 
@@ -148,9 +157,11 @@ class PoseHead(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor],
                 invert_pose: bool = False) -> torch.Tensor:
         x = feats[-1]
-        for conv in self.net[:-1]:
-            x = torch.relu(conv(x))
-        out = 0.01 * self.net[-1](x).float().mean(dim=(2, 3))
+        with self.autocast(x):
+            for conv in self.net[:-1]:
+                x = torch.relu(conv(x))
+            x = self.net[-1](x)
+        out = 0.01 * x.float().mean(dim=(2, 3))
         return transformation_from_parameters(out[:, :3], out[:, 3:6],
                                               invert=invert_pose)
 
@@ -159,9 +170,9 @@ def _depthwise_separable(in_ch: int, out_ch: int) -> nn.Sequential:
     """5x5 depthwise + BN + ReLU + 1x1 pointwise + BN + ReLU."""
     return nn.Sequential(
         nn.Conv2d(in_ch, in_ch, 5, padding=2, groups=in_ch, bias=False),
-        nn.BatchNorm2d(in_ch), nn.ReLU(inplace=True),
+        BatchNorm2d(in_ch), nn.ReLU(inplace=True),
         nn.Conv2d(in_ch, out_ch, 1, bias=False),
-        nn.BatchNorm2d(out_ch), nn.ReLU(inplace=True))
+        BatchNorm2d(out_ch), nn.ReLU(inplace=True))
 
 
 class _InstanceDecoder(nn.Module):
@@ -179,7 +190,7 @@ class _InstanceDecoder(nn.Module):
             proj = self.NUM_CH_PROJECT[i]
             net[f"project_{i}"] = nn.Sequential(
                 nn.Conv2d(num_ch_enc[-(i + 2)], proj, 1, bias=False),
-                nn.BatchNorm2d(proj), nn.ReLU(inplace=True))
+                BatchNorm2d(proj), nn.ReLU(inplace=True))
             net[f"fuse_{i}"] = _depthwise_separable(feat_ch + proj,
                                                     self.NUM_CH_DEC[i])
             feat_ch = self.NUM_CH_DEC[i]
@@ -214,7 +225,7 @@ class _InstanceSubHead(nn.Module):
         return _upsample_2x_align(self.net["conv"](x))
 
 
-class InstanceHead(nn.Module):
+class InstanceHead(ComputeDtype, nn.Module):
     """Center heatmap (B, 1, H, W), offsets (B, 2, H, W) as (dy, dx), and
     optionally thing-mask probabilities (B, 2, H, W), all float32."""
 
@@ -229,10 +240,13 @@ class InstanceHead(nn.Module):
                                 if use_thing_mask else None)
 
     def forward(self, feats: Sequence[torch.Tensor]):
-        x = self.decoder(feats)
-        center = self.center_head(x).float()
-        offset = self.offset_head(x).float()
+        with self.autocast(feats[-1]):
+            x = self.decoder(feats)
+            center = self.center_head(x)
+            offset = self.offset_head(x)
+            thing_logits = (None if self.thing_mask_head is None
+                            else self.thing_mask_head(x))
         thing_mask = None
-        if self.thing_mask_head is not None:
-            thing_mask = torch.softmax(self.thing_mask_head(x).float(), dim=1)
-        return center, offset, thing_mask
+        if thing_logits is not None:
+            thing_mask = torch.softmax(thing_logits.float(), dim=1)
+        return center.float(), offset.float(), thing_mask

@@ -11,17 +11,25 @@ channel axis. Parameter names follow the reference checkpoints:
 ``encoder.conv1.weight``, ``encoder.layer3.22.conv2.weight``,
 ``encoder.layer1.0.downsample.1.running_mean``.
 
-BatchNorm in eval mode normalizes with the running statistics. In train
-mode, after ``keep_running_stats``, it normalizes with the batch's
-statistics and leaves the running statistics as they are: the JAX
-adaptation step never updates them (it discards Flax's ``batch_stats``
-updates).
+BatchNorm (``BatchNorm2d`` below) in eval mode normalizes with the
+running statistics. In train mode it normalizes with the batch's
+statistics and moves the running ones as Flax's ``nn.BatchNorm``
+(momentum 0.9) does, with the biased batch variance: the JAX pretraining
+step keeps those updates. After ``keep_running_stats`` it leaves the
+running statistics as they are: the JAX adaptation step discards Flax's
+``batch_stats`` updates.
+
+The encoder runs in its ``compute_dtype`` (``models/precision.py``); its
+feature maps come out in that dtype.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from codeps_torch.models.precision import ComputeDtype
 
 _STAGES = {
     18: ("basic", (2, 2, 2, 2)),
@@ -32,6 +40,30 @@ _STAGES = {
 }
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same parameters, buffers and state-dict keys)
+    whose train-mode update of the running variance takes the *biased*
+    batch variance, as Flax's does; torch's own takes the unbiased one,
+    n / (n - 1) larger. ``momentum`` None is the cumulative average, as in
+    torch. The statistics are computed in float32 whatever the input's
+    dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        out = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                           0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+            self.num_batches_tracked.add_(1)
+            factor = (1.0 / float(self.num_batches_tracked)
+                      if self.momentum is None else self.momentum)
+            self.running_mean.lerp_(mean, factor)
+            self.running_var.lerp_(var, factor)
+        return out
+
+
 class BasicBlock(nn.Module):
     expansion = 1
 
@@ -39,9 +71,9 @@ class BasicBlock(nn.Module):
                  downsample: nn.Module | None = None):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -59,12 +91,12 @@ class Bottleneck(nn.Module):
                  downsample: nn.Module | None = None):
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         # torchvision v1.5 puts the stride on the 3x3 conv.
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4)
+        self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -84,7 +116,7 @@ class _Trunk(nn.Module):
         kind, stage_sizes = _STAGES[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
         self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
@@ -96,14 +128,14 @@ class _Trunk(nn.Module):
             if stride != 1 or inplanes != out_ch:
                 downsample = nn.Sequential(
                     nn.Conv2d(inplanes, out_ch, 1, stride, bias=False),
-                    nn.BatchNorm2d(out_ch))
+                    BatchNorm2d(out_ch))
             blocks = [block(inplanes, planes, stride, downsample)]
             blocks += [block(out_ch, planes) for _ in range(count - 1)]
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
             inplanes = out_ch
 
 
-class ResNetEncoder(nn.Module):
+class ResNetEncoder(ComputeDtype, nn.Module):
     """Multi-scale feature encoder: (B, C, H, W) -> five NCHW maps at
     strides 2, 4, 8, 16, 32."""
 
@@ -122,11 +154,12 @@ class ResNetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         enc = self.encoder
-        feats = [enc.relu(enc.bn1(enc.conv1(x)))]
-        feats.append(enc.layer1(enc.maxpool(feats[-1])))
-        feats.append(enc.layer2(feats[-1]))
-        feats.append(enc.layer3(feats[-1]))
-        feats.append(enc.layer4(feats[-1]))
+        with self.autocast(x):
+            feats = [enc.relu(enc.bn1(enc.conv1(x)))]
+            feats.append(enc.layer1(enc.maxpool(feats[-1])))
+            feats.append(enc.layer2(feats[-1]))
+            feats.append(enc.layer3(feats[-1]))
+            feats.append(enc.layer4(feats[-1]))
         return feats
 
 

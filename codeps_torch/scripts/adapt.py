@@ -40,11 +40,17 @@ def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="CoDEPS adaptation")
     parser.add_argument("--run_name", required=True)
     parser.add_argument("--filename_config", required=True)
+    parser.add_argument("--comment", default="",
+                        help="Accepted for the JAX CLI's command lines; "
+                             "unused")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--checkpoint", action="append", default=[],
                         help="Pretraining checkpoint: a path (every module "
                              "it holds) or module:path; repeatable. "
                              "Reference .pth or the JAX package's .pkl")
+    parser.add_argument("--mode", default="adapt",
+                        help="Accepted for the JAX CLI's command lines; "
+                             "unused")
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--max_frames", type=int, default=None)
     parser.add_argument("--buffer_state", default=None,
@@ -154,7 +160,7 @@ def run_adaptation(cfg, target, val_target, source, source_val, *,
         log_info("Loaded %s from %s", ", ".join(loaded) or "no modules",
                  ", ".join(checkpoints))
     runner = AdaptationRunner(cfg, modules, replay_buffer, seed=seed,
-                              device=device)
+                              device=device, wandb_logger=wandb_logger)
     log_info("Frozen modules: %s | EMA modules: %s",
              list(runner.state.frozen_modules),
              list(runner.state.ema_modules))

@@ -5,7 +5,10 @@ forward over every image, writing per-image panels (RGB, depth,
 semantic, panoptic) and optionally the raw predictions as ``.npz``.
 ``--checkpoint`` takes what ``io/checkpoint.pretrained_from_checkpoints``
 loads (a reference-layout ``.pth``, the JAX package's ``.pkl``, or
-``module:path``); keys it lacks keep their seeded initialization.
+``module:path``); keys it lacks keep their seeded initialization. The
+modules compute in ``tpu.compute_dtype`` of the config, bfloat16 by
+default, as the port's every entry point does; ``scripts/infer.py`` of the
+JAX package builds its modules in float32 whatever the key.
 
 Example:
     python -m codeps_torch.scripts.infer --checkpoint codeps.pth \

@@ -50,6 +50,7 @@ from codeps_torch.losses import (binary_mask_loss, center_loss,
                                  ema_consistency_loss, offset_loss,
                                  reconstruction_loss, semantic_loss)
 from codeps_torch.models.codeps_net import MODULE_NAMES
+from codeps_torch.models.precision import compute_dtype
 from codeps_torch.ops.grid_sample import grid_sample_pair_pre
 from codeps_torch.ops.normalize import maybe_normalize
 from codeps_torch.ops.panoptic import panoptic_fusion_batch
@@ -337,6 +338,9 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     """
     weights = {k: v for k, v in cfg.losses.weights.items()}
     num_scales = cfg.depth.num_recon_scales
+    # the image-space loss math follows the modules' compute dtype
+    # (adapt.py:300-305); geometry stays float32
+    loss_dtype = compute_dtype(cfg)
     top_k = cfg.semantics.top_k
     mean = tuple(cfg.dataset.normalization.rgb_mean)
     std = tuple(cfg.dataset.normalization.rgb_std)
@@ -357,7 +361,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         return semantic_loss(prediction, target, pixel_weights,
                              class_weights=class_weights,
                              ignore_labels=sem_ignore_classes,
-                             top_k_percent_pixels=top_k)
+                             top_k_percent_pixels=top_k, dtype=loss_dtype)
 
     def depth_domain(student, images, camera, noise, per_sample=False):
         """Depth losses of one domain: (recon, smth, transformations,
@@ -367,7 +371,8 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         recon = reconstruction_loss(camera, images, fwd["depth"],
                                     fwd["transformations"],
                                     num_scales=num_scales,
-                                    per_sample=per_sample, noise=noise)
+                                    per_sample=per_sample, noise=noise,
+                                    dtype=loss_dtype)
         smth = edge_aware_smoothness_loss(images[0], fwd["disparity"],
                                           per_sample=per_sample)
         return recon, smth, fwd["transformations"], feats_t, fwd["depth"]

@@ -132,15 +132,20 @@ class AdaptationRunner:
     EMA-filtered modules from the config's adapt flags; ``seed`` seeds the
     automask noise). ``noise``, a callable ``shape ->
     tensor``, replaces that generator in every step (the hook the parity
-    tests use to inject the JAX package's draws).
+    tests use to inject the JAX package's draws). ``wandb_logger`` (an
+    enabled ``io/logging.WandbLogger``) takes the meters, the per-class
+    depth series and panels of the latest teacher eval every
+    ``logging.log_step_interval`` frames.
     """
 
     def __init__(self, cfg, modules, replay_buffer, seed: int = 0,
-                 device=None, verbose: bool = True, noise=None):
+                 device=None, verbose: bool = True, noise=None,
+                 wandb_logger=None):
         self.cfg = cfg
         self.buffer = replay_buffer
         self.verbose = verbose
         self.noise = noise
+        self.wandb_logger = wandb_logger
         self.offsets = tuple(cfg.dataset.offsets)
 
         dataset = replay_buffer.target_data
@@ -413,6 +418,53 @@ class AdaptationRunner:
 
     # ------------------------------------------------------------------
 
+    def _logs_to_wandb(self) -> bool:
+        return bool(getattr(self.wandb_logger, "enabled", False))
+
+    def _log_wandb_interval(self, step: int, sample, results) -> None:
+        """The stream's scalars, the per-class depth series and the panels
+        of the latest teacher eval (``adapt_loop.py:584``, the reference's
+        ``adapt_codeps.py:311-337``)."""
+        if not self._logs_to_wandb():
+            return
+        logger = self.wandb_logger
+        remove_classes = tuple(self.cfg.dataset.remove_classes)
+        label_mode = self.cfg.dataset.label_mode
+        scalar_metrics = {name: float(m.value) for name, m in
+                          self.meters["metrics"].items()
+                          if np.ndim(m.value) == 0}
+        logger.log_scalars(
+            "adapt", losses={name: float(m.value) for name, m in
+                             self.meters["losses"].items()},
+            metrics=scalar_metrics, step=step)
+        logger.log_depth_per_class(scalar_metrics, remove_classes,
+                                   label_mode, step=step)
+        if results:
+            from codeps_torch.io.visualizations import (
+                gen_visualizations, plot_confusion_matrix)
+            norm = self.cfg.dataset.normalization
+            mean = norm.rgb_mean if norm.active else (0.0, 0.0, 0.0)
+            std = norm.rgb_std if norm.active else (1.0, 1.0, 1.0)
+            panels = gen_visualizations(
+                {"frames": frames_from_sample(sample["target"],
+                                              self.offsets)},
+                results, mean, std, remove_classes=remove_classes,
+                label_mode=label_mode)
+            conf = self.meters["metrics"]["sem_conf"].sum
+            if np.asarray(conf).sum() > 0:
+                panels["conf_mat"] = plot_confusion_matrix(
+                    np.asarray(conf), remove_classes, label_mode)
+            logger.log_images("adapt/batch", panels, step=step)
+
+    def _host_results(self, it: int, log_interval: int, results):
+        """What of the teacher eval's results goes to the host: the
+        panoptic map, and on a frame whose panels are logged every map
+        but the soft semantics."""
+        if self._logs_to_wandb() and (it + 1) % log_interval == 0:
+            return {k: v for k, v in results.items()
+                    if v is not None and k != "semantic_soft"}
+        return {"panoptic": results["panoptic"]}
+
     def _timed_getitem(self, index: int):
         t0 = time.perf_counter()
         sample = self.buffer[index]
@@ -460,6 +512,8 @@ class AdaptationRunner:
                           f"{float(self.meters['losses']['loss'].value):.4f}"
                           f" ({np.mean(recent) if recent else 0.0:.3f} s a "
                           "frame)", flush=True)
+                self._log_wandb_interval(done, ctx["sample"],
+                                         host["results"])
                 self.meters["metrics"]["sem_conf_interval"] = \
                     ConfusionMatrixMeter(self.num_classes)
 
@@ -487,10 +541,11 @@ class AdaptationRunner:
                     pan_gt = self._gt_panoptic(sample, eval_gt, results)
                     host, event = _queue_host(
                         {"stats": stats, "pan_gt": pan_gt,
-                         "results": {"panoptic": results["panoptic"]}},
+                         "results": self._host_results(it, log_interval,
+                                                       results)},
                         self.device)
                     consume({"event": event, "host": host, "nsteps": 1,
-                             "it": it})
+                             "it": it, "sample": sample})
                     self.step_times.append(time.perf_counter() - start)
                     if on_frame is not None:
                         on_frame(it)
@@ -522,7 +577,8 @@ class AdaptationRunner:
                 host, event = _queue_host(
                     {"stats": stats, "accum": accum, "pan_gt": pan_gt,
                      "features": features,
-                     "results": {"panoptic": results["panoptic"]}},
+                     "results": self._host_results(it, log_interval,
+                                                   results)},
                     self.device)
                 mark("gt_map")
                 # the previous frame's meters and add while this frame runs;
@@ -530,7 +586,8 @@ class AdaptationRunner:
                 if pending_frame is not None:
                     consume(pending_frame)
                 pending_frame = {"event": event, "host": host,
-                                 "nsteps": nsteps, "it": it}
+                                 "nsteps": nsteps, "it": it,
+                                 "sample": sample}
                 mark("meters")
                 if it + 1 < num_frames:
                     concurrent.futures.wait([pending])

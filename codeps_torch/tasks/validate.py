@@ -7,7 +7,9 @@ the panoptic fusion of the prediction), the confusion matrix and depth
 metrics, the panoptic fusion of the ground truth, and the PQ stream. The
 grouping kernel runs twice a batch, for the prediction and for the GT map;
 the GT offsets go to the device as (2, H, W) planes, which the kernel
-reads in place.
+reads in place. With ``compute_loss`` each batch also goes through the
+pretraining loss with running statistics (``tasks/train.make_loss_fn``,
+``train=False``), as ``codeps_tpu/tasks/validate.py:105-116`` does.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from codeps_torch.tasks.adapt import make_eval_step, make_gt_panoptic_step
 _EVAL_KEYS = ("frames", "depth_gt", "semantic", "semantic_eval", "center")
 
 
-def _to_device(batch_np: Dict[str, np.ndarray], device) -> Dict[str, Any]:
+def _to_device(batch_np: Dict[str, np.ndarray], device,
+               keys=_EVAL_KEYS) -> Dict[str, Any]:
     batch = {key: torch.from_numpy(np.asarray(batch_np[key])).to(device)
-             for key in _EVAL_KEYS if key in batch_np}
+             for key in keys if key in batch_np and key != "offset"}
     if "offset" in batch_np:
         planes = np.ascontiguousarray(
             np.asarray(batch_np["offset"], np.float32).transpose(0, 3, 1, 2))
@@ -49,15 +52,13 @@ def run_validation(cfg, modules, loader, thing_list, stuff_list,
       - the depth metrics ``d_*`` averaged over the batches;
       - ``p_{pq,sq,rq}``, ``p_stuff_*`` and ``p_things_*``;
       - with ``gen_visuals``, ``visual_panels``: colorized panels of the
-        first batch.
-
-    ``compute_loss`` needs the pretraining losses, which come with the
-    pretraining slice.
+        first batch;
+      - with ``compute_loss``, the unweighted losses ``val_loss_<name>``
+        and the weighted total ``val_loss``, averaged over the batches
+        (``class_weights`` default to ``cfg.semantics.class_weights``).
+        The automask noise of every batch comes from a generator seeded
+        0, as the JAX package draws it from one fixed key.
     """
-    if compute_loss:
-        raise NotImplementedError(
-            "validation losses need tasks/train.make_loss_fn, which comes "
-            "with the pretraining slice of the port")
     training = [name for name, m in modules.named_modules() if m.training]
     if training:
         raise ValueError(f"validation runs modules in eval mode; in train "
@@ -66,6 +67,18 @@ def run_validation(cfg, modules, loader, thing_list, stuff_list,
     num_classes = modules.num_classes
     eval_step = make_eval_step(cfg, thing_list, num_classes, ignore_classes)
     gt_panoptic = make_gt_panoptic_step(thing_list, num_classes)
+    loss_fn = None
+    if compute_loss:
+        from codeps_torch.tasks.train import make_loss_fn
+        if class_weights is None:
+            class_weights = list(cfg.semantics.class_weights)
+        loss_fn = make_loss_fn(cfg, class_weights, train=False)
+        generator = torch.Generator(device=device)
+
+        def noise(shape):
+            return torch.randn(shape, generator=generator, device=device)
+    loss_sums: Dict[str, float] = {}
+    loss_count = 0
 
     conf_total = np.zeros((num_classes, num_classes), np.int64)
     depth_sums: Dict[str, float] = {}
@@ -76,8 +89,17 @@ def run_validation(cfg, modules, loader, thing_list, stuff_list,
     for batch_index, batch_np in enumerate(loader):
         if max_batches is not None and batch_index >= max_batches:
             break
-        batch = _to_device(batch_np, device)
+        batch = _to_device(batch_np, device,
+                           tuple(batch_np) if compute_loss else _EVAL_KEYS)
         results, stats = eval_step(modules, batch)
+        if loss_fn is not None:
+            generator.manual_seed(0)
+            with torch.no_grad():
+                total, losses, _ = loss_fn(modules, batch, noise)
+            for key, value in (("val_loss", total), *(
+                    (f"val_loss_{k}", v) for k, v in losses.items())):
+                loss_sums[key] = loss_sums.get(key, 0.0) + float(value)
+            loss_count += 1
         pan_gt = None
         gt_sem = batch.get("semantic_eval", batch.get("semantic"))
         if "panoptic" in results and "center" in batch \
@@ -112,6 +134,8 @@ def run_validation(cfg, modules, loader, thing_list, stuff_list,
             sample_np, results_np, mean, std,
             remove_classes=tuple(cfg.dataset.remove_classes),
             label_mode=label_mode)
+    for key, value in loss_sums.items():
+        metrics[key] = value / loss_count
     if conf_total.sum() > 0:
         per_class = compute_sem_miou(conf_total, num_classes,
                                      ignore_classes)

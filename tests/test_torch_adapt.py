@@ -73,6 +73,7 @@ def _configure(cfg):
     cfg.semantics.class_weights = [1.0] * NC
     cfg.adapt.ema.semantic = True
     cfg.adapt.ema.alpha = 0.99
+    cfg.tpu.compute_dtype = "float32"
     return cfg
 
 

@@ -250,3 +250,85 @@ def test_cli_needs_a_card_unless_told_cpu(trees, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         adapt_cli.main(["--run_name", "nocard", "--filename_config",
                         write("kitti_360", "off")])
+
+
+def test_cli_takes_the_jax_clis_command_line(monkeypatch):
+    """Every flag of ``scripts/adapt.py`` parses in the port, ``--comment``
+    and ``--mode`` included (both CLIs ignore them)."""
+    argv = ["--run_name", "r", "--filename_config", "c.yaml", "--comment",
+            "a note", "--seed", "7", "--checkpoint", "x.pth", "--mode",
+            "adapt", "--debug", "--max_frames", "3", "--buffer_state", "b",
+            "--save_buffer_state", "s", "--experiments_dir", "e", "--wandb",
+            "--wandb_project", "p", "--wandb_entity", "t"]
+    spec = importlib.util.spec_from_file_location(
+        "jax_adapt_cli_args", REPO / "scripts" / "adapt.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    monkeypatch.setattr(sys, "argv", ["adapt.py"] + argv)
+    ref = vars(module.parse_args())
+    ours = vars(adapt_cli.parse_args(argv))
+    for key, value in ref.items():
+        if key != "checkpoint":
+            assert ours[key] == value, key
+    # the port's --checkpoint is repeatable (module:path specs)
+    assert ours["checkpoint"] == [ref["checkpoint"]]
+    assert ours["device"] == "cuda"
+
+
+class _WandbStub:
+    """A stand-in ``wandb`` module that records what is logged."""
+
+    def __init__(self):
+        self.logged = []
+        self.plot = type("plot", (), {"line_series": staticmethod(
+            lambda **kwargs: ("series", kwargs["title"]))})
+        outer = self
+
+        class Run:
+            def log(self, payload, step):
+                outer.logged.append((step, dict(payload)))
+
+            def finish(self):
+                outer.logged.append(("finish", {}))
+        self._run = Run()
+
+    def init(self, **kwargs):
+        return self._run
+
+    @staticmethod
+    def Image(value):
+        return ("image", getattr(value, "shape", None))
+
+    @staticmethod
+    def Table(data, columns):
+        return ("table", tuple(columns))
+
+
+def test_stream_logs_to_wandb_at_the_log_interval(trees, monkeypatch):
+    """The runner logs the meters, the per-class depth series and the
+    panels of the latest teacher eval every ``log_step_interval`` frames,
+    at the frame count as the step (``adapt_loop.py:584, 687``)."""
+    tmp, write = trees
+    config = Path(write("kitti_360", "online"))
+    text = config.read_text() + "logging:\n  log_step_interval: 2\n"
+    config = tmp / "k360_wandb.yaml"
+    config.write_text(text)
+    stub = _WandbStub()
+    monkeypatch.setitem(sys.modules, "wandb", stub)
+    adapt_cli.main(["--run_name", "wb", "--filename_config", str(config),
+                    "--max_frames", "4", "--wandb", "--device", "cpu",
+                    "--experiments_dir", str(tmp / "experiments")])
+    by_step = {}
+    for step, payload in stub.logged:
+        by_step.setdefault(step, {}).update(payload)
+    panels = {step for step, payload in stub.logged
+              if any(k.startswith("adapt/batch/") for k in payload)}
+    assert panels == {2, 4}
+    for step in (2, 4):
+        keys = set(by_step[step])
+        assert {"adapt/batch/rgb_0", "adapt/batch/depth_0",
+                "adapt/batch/semantic_0", "adapt/batch/panoptic_0",
+                "adapt/batch/conf_mat", "adapt_losses/loss",
+                "adapt_metrics/sem_miou", "adapt_metrics/p_pq"} <= keys
+        assert "d_abs_rel" in keys           # the per-class depth series
+    assert stub.logged[-1] == ("finish", {})

@@ -36,6 +36,7 @@ NC = 14
 def _configure(cfg):
     cfg.model.po_depth_net.params.nof_layers = 18
     cfg.dataset.feed_img_size = [32, 64]
+    cfg.tpu.compute_dtype = "float32"
     return cfg
 
 

@@ -300,6 +300,27 @@ def test_cityscapes_reader_matches(trees, augment):
         _assert_samples_equal(ours, ref)
 
 
+@pytest.mark.parametrize("only_rgb", [False, True])
+def test_cityscapes_pretraining_items_match(trees, only_rgb):
+    """The pretraining CLI's train reader, augmented: without depth, and
+    only RGB for cfg/train_cityscapes_depth_only.yaml."""
+    jcfg, pcfg = _cfgs(trees, "cityscapes")
+    ref_ds = JaxCityscapes("train", jcfg.dataset, return_only_rgb=only_rgb)
+    ours_ds = Cityscapes("train", pcfg.dataset, return_only_rgb=only_rgb)
+    assert len(ours_ds) == len(ref_ds) > 0
+    for index in range(len(ref_ds)):
+        random.seed(index)
+        ref = ref_ds.__getitem__(index, do_augmentation=True,
+                                 do_network_preparation=True)
+        ours = ours_ds.__getitem__(index, do_augmentation=True,
+                                   do_network_preparation=True,
+                                   rng=random.Random(index))
+        assert "depth" not in ours
+        if only_rgb:
+            assert set(ours) == {"rgb", "camera_model"}
+        _assert_samples_equal(ours, ref)
+
+
 @pytest.mark.parametrize("label_mode", ["codeps", "cityscapes"])
 @pytest.mark.parametrize("augment", [False, True])
 def test_semkitti_reader_matches(trees, augment, label_mode):

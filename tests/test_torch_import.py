@@ -106,7 +106,11 @@ STREAM_MODULES = ("codeps_torch.tasks.adapt_loop",
                   "codeps_torch.tasks.validate",
                   "codeps_torch.io.checkpoint",
                   "codeps_torch.io.logging",
-                  "codeps_torch.scripts.adapt")
+                  "codeps_torch.scripts.adapt",
+                  "codeps_torch.models.precision",
+                  "codeps_torch.tasks.state",
+                  "codeps_torch.tasks.train",
+                  "codeps_torch.scripts.train")
 
 
 @pytest.mark.parametrize("module", STREAM_MODULES)
@@ -157,3 +161,19 @@ def test_runner_raises_without_a_card_and_on_host_mixup(no_cuda):
     runner = AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
                               _target_stub(), device="cpu")
     assert runner.device == torch.device("cpu")
+
+
+def test_train_state_raises_without_a_card(no_cuda):
+    from codeps_torch.config import get_cfg_defaults
+    from codeps_torch.models import build_modules
+    from codeps_torch.tasks.state import make_train_state
+
+    cfg = get_cfg_defaults()
+    cfg.model.po_depth_net.params.nof_layers = 18
+    modules = build_modules(cfg, 14, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_state(modules, 1e-4)
+    state = make_train_state(modules, 1e-4, device="cpu")
+    assert state.device == torch.device("cpu")
+    # the package default computes in bfloat16, as the JAX package's
+    assert modules.backbone_po_depth.compute_dtype == torch.bfloat16

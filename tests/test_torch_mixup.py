@@ -137,6 +137,7 @@ def _configure(cfg):
     cfg.adapt.mixup.cut_mix.nof_hor_splits = 4
     cfg.adapt.mixup.cut_mix.nof_vert_splits = 2
     cfg.adapt.mixup.cut_mix.nof_segments = 2
+    cfg.tpu.compute_dtype = "float32"
     return cfg
 
 

@@ -42,6 +42,7 @@ def _cfg(defaults):
     cfg = defaults()
     cfg.model.po_depth_net.params.nof_layers = 50
     cfg.dataset.feed_img_size = [HEIGHT, WIDTH]
+    cfg.tpu.compute_dtype = "float32"
     return cfg
 
 

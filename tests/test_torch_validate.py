@@ -7,7 +7,9 @@ as the adaptation CLI validates the target) and synthetic Cityscapes val
 ResNet-18 at 32x64, the JAX package in float32; the center head's bias is
 raised so that the random heads give centers, and the small-instance area
 lowered so that the GT maps of both splits hold thing segments. Both
-splits share one JAX compile of the eval step.
+splits share one JAX compile of the eval step. Cityscapes val is also
+validated with losses (``compute_loss=True``), as the pretraining CLI
+validates; the losses within 1e-4 relative.
 
 Tolerances: PQ, SQ, RQ (All, Stuff, Things), mIoU and abs_rel within
 0.005 (``scripts/parity_e2e.py:52-54``); the other depth means within
@@ -50,6 +52,9 @@ PQ_TOL = MIOU_TOL = ABS_REL_TOL = 0.005
 DEPTH_REL_TOL = 1e-3
 NEAR_TIE_SHARE = 0.005
 SPLITS = ("k360_val", "cs_val")
+# the split validated with losses, as the pretraining CLI validates
+LOSS_SPLIT = "cs_val"
+LOSS_REL_TOL = 1e-4
 
 
 def _configure(cfg, k360_root, cs_root):
@@ -152,14 +157,15 @@ def runs(tmp_path_factory):
                     metrics = jax_validate.run_validation(
                         cfg, modules, params, stats, loader,
                         dataset.thing_classes, dataset.stuff_classes,
-                        dataset.ignore_classes, gen_visuals=True)
+                        dataset.ignore_classes, gen_visuals=True,
+                        compute_loss=split == LOSS_SPLIT)
                 else:
                     loader = DataLoader(dataset, batch_size=2, offsets=[1],
                                         shuffle=False, drop_last=False)
                     metrics = run_validation(
                         cfg, pmodules, loader, dataset.thing_classes,
                         dataset.stuff_classes, dataset.ignore_classes,
-                        gen_visuals=True)
+                        gen_visuals=True, compute_loss=split == LOSS_SPLIT)
                 out[side][split] = (metrics, maps[-1], len(dataset))
     out["port_modules"], out["port_cfg"] = pmodules, pcfg
     return out
@@ -213,10 +219,30 @@ def test_visual_panels_match(runs, split):
         assert ours[key].dtype == panel.dtype, key
 
 
+def test_validation_losses_match(runs):
+    """``compute_loss=True``: the unweighted pretraining losses with
+    running statistics and their weighted total, averaged over the
+    batches. The automask noise differs (a torch generator seeded 0, a
+    JAX key 0); at 1e-5 it moves the per-pixel minimum only at near-ties,
+    far below the tolerance."""
+    ref = runs["jax"][LOSS_SPLIT][0]
+    ours = runs["port"][LOSS_SPLIT][0]
+    keys = {k for k in ref if k.startswith("val_loss")}
+    assert keys == {k for k in ours if k.startswith("val_loss")}
+    assert {"val_loss", "val_loss_depth_recon", "val_loss_depth_smth",
+            "val_loss_semantic", "val_loss_center",
+            "val_loss_offset"} <= keys
+    for key in keys:
+        r, o = float(ref[key]), float(ours[key])
+        assert abs(o - r) <= LOSS_REL_TOL * abs(r), (key, o, r)
+    assert not any(k.startswith("val_loss")
+                   for k in runs["port"]["k360_val"][0])
+
+
 def test_validation_needs_eval_mode_and_has_no_losses_yet(runs):
     modules, cfg = runs["port_modules"], runs["port_cfg"]
-    with pytest.raises(NotImplementedError, match="pretraining"):
-        run_validation(cfg, modules, [], (), (), compute_loss=True)
+    # no batch, no loss: compute_loss adds nothing to an empty split
+    assert run_validation(cfg, modules, [], (), (), compute_loss=True) == {}
     modules.depth_head.train()
     try:
         with pytest.raises(ValueError, match="eval mode"):
