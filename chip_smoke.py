@@ -124,11 +124,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
     median host-clock time and images/s, the loop's time a step, peak
     memory, the loader's item time, validation time per batch and the
     kernel's device time at 2x512x1024;
-10. the ``kernels`` line (with the per-n times and bounds, the times at
-    the CLI's and pretraining's shapes and the layout copies on each
-    path), the ``adapt_step``, ``adapt_stream``, ``adapt_cli`` and
-    ``train`` lines, then the last line
-    ``{"ok": true, "device": {...}}``.
+10. host mixup parts: ``Mixup.conf_instance_mixup`` on street-like label
+    maps at 512x1024 with the yaml's ``conf_instance_mix`` (conf_thresh
+    0.98, min_inst_size 2000), re-fused on the card once by the kernel
+    and once by the plain grouping: equal RGB, semantic and instance maps,
+    one launch, no layout copy, instances pasted. Then a 3-frame host
+    mixup stream at 64x192 (source 64x128, ResNet-18, float32, thing
+    logits and center bias shifted so that the pseudo-labels hold
+    instances, min_inst_size scaled by the source's area) on the card and
+    on the CPU from the same weights, samples and automask noise: PQ,
+    mIoU and abs_rel within ``scripts/parity_e2e.py``'s tolerances and
+    equal GT panoptic maps;
+11. host mixup stream: phase 7's configuration with ``mixup_strategies:
+    [cut_mixup, conf_instance_mixup]`` and the yaml's
+    ``conf_instance_mix`` (HOST_MIXUP_FRAMES frames; the phase-7 weights
+    with the thing logits shifted so that half of a frame's pixels are
+    things, so that instances are pasted). Each frame launches the kernel
+    four times (teacher eval, GT map, the pseudo-label stack of the two
+    mixup items at 2x384x1408, the re-fusion at 1x512x1024), each equal
+    to its plain version, with no layout copy. Prints the frame latency,
+    frames/s, the main thread's time in ``_compose_mixups`` by part
+    (prep, readback, each strategy, the re-fusion), instances pasted and
+    valid centers per re-fusion, the peak memory against phase 7's fused
+    stream, and the kernel's device time and bound at both new shapes;
+12. the ``kernels`` line (with the per-n times and bounds, the times at
+    the CLI's, pretraining's and the host mixup path's shapes and the
+    layout copies on each path), the ``adapt_step``, ``adapt_stream``,
+    ``adapt_cli``, ``train`` and ``host_mixup_stream`` lines, then the
+    last line ``{"ok": true, "device": {...}}``.
 
 The full-width runs compute in bfloat16, the package default
 (``cfg.tpu.compute_dtype``, as the JAX package's); phase 6 also times the
@@ -236,6 +259,16 @@ TRAIN_STAT_TOL = 1e-5
 DEPTH_REL_TOL = 1e-3
 # share of pixels whose argmax may flip between two float32 devices
 NEAR_TIE_SHARE = 0.005
+# Host mixup stream (phase 11): frames, and the yaml's conf_instance_mix;
+# min_inst_size is in pixels of the 512x1024 source frame, so a smaller
+# source scales it by its area.
+HOST_MIXUP_FRAMES = 8
+CONF_THRESH, MIN_INST_SIZE = 0.98, 2000
+# share of the teacher's pixels that its shifted thing logits label as
+# things, and share over the center threshold of the small stream's
+# shifted center head
+THING_SHARE = 0.5
+CENTER_SHARE = 1e-3
 
 
 def phase(name):
@@ -1022,13 +1055,15 @@ def meter_values(meters):
     return out
 
 
-def drive_stream(torch, runner, card, max_frames=None, on_frame=None):
+def drive_stream(torch, runner, card, max_frames=None, on_frame=None,
+                 launches_per_frame=2):
     """(meters, run) of ``runner``'s stream, with the grouping counts set
     to 0 just before it and read just after. On the ``card`` the kernel
-    must launch twice a frame with no layout copy, and every grouping call
-    is kept and checked against the plain version after the run.
-    ``run`` also holds the (GT, prediction) panoptic maps the PQ meter
-    took, the seconds and the peak memory."""
+    must launch ``launches_per_frame`` times a frame with no layout copy,
+    and every grouping call is kept and checked against the plain version
+    after the run. ``run`` also holds the (GT, prediction) panoptic maps
+    the PQ meter took, the seconds, the peak memory, each call's shape
+    and valid centers, and the last call of each shape."""
     from codeps_torch.ops import grouping
     from codeps_torch.ops import panoptic as panoptic_ops
     grouped, pq_maps = [], []
@@ -1065,9 +1100,13 @@ def drive_stream(torch, runner, card, max_frames=None, on_frame=None):
            "peak": torch.cuda.max_memory_allocated() if card else 0,
            "frames": runner.state.step, "pq_maps": pq_maps,
            "centers": [int(v.sum()) for _, v, _, _ in grouped],
+           "shapes": [tuple(o.shape[:3]) for _, _, o, _ in grouped],
+           "last_by_shape": {tuple(o.shape[:3]): (yx, v, o)
+                             for yx, v, o, _ in grouped},
            "max_abs_err": 0}
     if card:
-        assert run["launches"] == 2 * run["frames"], run["launches"]
+        assert run["launches"] == launches_per_frame * run["frames"], \
+            run["launches"]
         assert run["copies"] == 0, run["copies"]
         for yx, valid, offsets, out in grouped:
             ref = grouping.group_pixels_plain(yx, valid, offsets)
@@ -1404,6 +1443,166 @@ def train_step_card_vs_cpu(torch, device, rng):
         out[name] = ({k: float(v) for k, v in metrics.items()
                       if v.ndim == 0}, stats)
     return out
+
+
+def host_mixup_config(target_size, source_size, layers=101):
+    """``stream_config`` with the package-default strategies ``[cut_mixup,
+    conf_instance_mixup]`` and the yaml's ``conf_instance_mix``
+    (``min_inst_size`` scaled by the source's area). Neither the yaml nor
+    the defaults weight the conf_instance_mixup loss, which would leave
+    its composed samples unread: it gets the cut-mixup loss's weight."""
+    cfg = stream_config(target_size, source_size, layers=layers)
+    cfg.adapt.mixup.general.mixup_strategies = ["cut_mixup",
+                                                "conf_instance_mixup"]
+    conf = cfg.adapt.mixup.conf_instance_mix
+    conf.conf_thresh = CONF_THRESH
+    conf.min_inst_size = int(MIN_INST_SIZE * source_size[0] * source_size[1]
+                             / (SOURCE_HEIGHT * SOURCE_WIDTH))
+    cfg.losses.weights.semantic_conf_instance_mixup = \
+        cfg.losses.weights.semantic_cut_mixup
+    return cfg
+
+
+def shift_thing_logits(torch, modules, image):
+    """Shift the semantic head's thing logits so that THING_SHARE of the
+    pixels of ``image`` (1, H, W, 3 uint8) argmax to a thing class: by the
+    quantile of (log of the best stuff probability - log of the best
+    thing probability), a raise where fewer are things and a cut where
+    more are. Returns the shift."""
+    from codeps_torch.ops.normalize import maybe_normalize
+    from codeps_torch.tasks.forward import apply_encoder
+    device = next(modules.parameters()).device
+    head = modules.semantic_head
+    with torch.no_grad():
+        probs = head(apply_encoder(modules.backbone_po_depth, maybe_normalize(
+            torch.from_numpy(image).to(device)))).float()
+        is_thing = torch.zeros(probs.shape[1], dtype=torch.bool,
+                               device=device)
+        is_thing[list(THINGS)] = True
+        margin = (probs[:, ~is_thing].amax(1).log()
+                  - probs[:, is_thing].amax(1).log())
+        shift = float(torch.quantile(margin.flatten().float(), THING_SHARE))
+        conv = (head.semconv_guda if head.use_guda_fusion
+                else head.semconv[-1])
+        conv.bias[list(THINGS)] += shift
+    return shift
+
+
+def raise_pseudo_instances(torch, modules, image):
+    """``shift_thing_logits``, and the center head's bias shifted so that
+    CENTER_SHARE of the pixels of ``image`` pass the 0.1 center
+    threshold. Returns (thing logit shift, center bias shift)."""
+    from codeps_torch.ops.normalize import maybe_normalize
+    from codeps_torch.tasks.forward import apply_encoder
+    thing = shift_thing_logits(torch, modules, image)
+    device = next(modules.parameters()).device
+    with torch.no_grad():
+        center, _, _ = modules.instance_head(apply_encoder(
+            modules.backbone_po_depth,
+            maybe_normalize(torch.from_numpy(image).to(device))))
+        shift = float(0.1 - torch.quantile(center.flatten().float(),
+                                           1.0 - CENTER_SHARE))
+        modules.instance_head.center_head.net.conv.bias.add_(shift)
+    return thing, shift
+
+
+def host_mixup_labels(rng, height, width):
+    """Source and target of one ``conf_instance_mixup`` at height x width:
+    street-like train-id maps (``street_labels`` with stuff ids 0-4 and
+    thing ids 11 and 13), six things in the source and twelve in the
+    target, RGB normalized-like floats."""
+    import numpy as np
+    out = {}
+    for name, things in (("src", 6), ("tgt", 12)):
+        semantic, instance = street_labels(
+            rng, height, width, things, stuff=(10, 2, 8, 1, 0),
+            thing_ids=(11, 13), stuff_instances=False)
+        out[f"semantic_{name}"] = semantic.astype(np.int32)
+        out[f"instance_{name}"] = instance.astype(np.int32)
+        out[f"img_{name}"] = rng.normal(0, 1, (height, width, 3)).astype(
+            np.float32)
+    return out
+
+
+def refusion_on_card(torch, device, rng):
+    """``Mixup.conf_instance_mixup`` at the source size with the yaml's
+    threshold and size, re-fused on the card by the kernel and by the plain
+    grouping (on the same card): equal outputs, one launch, no layout
+    copy. Returns the numbers."""
+    from codeps_torch.data.mixup import Mixup
+    from codeps_torch.ops import grouping
+    from codeps_torch.ops import panoptic as panoptic_ops
+    labels = host_mixup_labels(rng, SOURCE_HEIGHT, SOURCE_WIDTH)
+    args = (labels["img_src"], labels["img_tgt"], labels["instance_src"],
+            labels["semantic_src"], labels["semantic_tgt"],
+            labels["instance_tgt"], MIN_INST_SIZE)
+    group_pixels = panoptic_ops.group_pixels
+    outs, stats, seconds = {}, {}, {}
+    for name, group in (("kernel", group_pixels),
+                        ("plain", grouping.group_pixels_plain)):
+        panoptic_ops.group_pixels = group
+        grouping.group_pixels_cuda.launches = 0
+        grouping.group_pixels_cuda.copies = 0
+        stats[name] = {}
+        try:
+            t0 = time.perf_counter()
+            outs[name] = Mixup.conf_instance_mixup(
+                *args, thing_list=THINGS, num_classes=NUM_CLASSES,
+                conf_thresh=CONF_THRESH, device=device, stats=stats[name])
+            seconds[name] = time.perf_counter() - t0
+        finally:
+            panoptic_ops.group_pixels = group_pixels
+        stats[name]["launches"] = grouping.group_pixels_cuda.launches
+        stats[name]["copies"] = grouping.group_pixels_cuda.copies
+    for part, ours, ref in zip(("rgb", "semantic", "instance"),
+                               outs["kernel"], outs["plain"]):
+        assert (ours == ref).all(), f"conf_instance_mixup {part}: kernel " \
+            "!= plain"
+    assert stats["kernel"]["launches"] == 1, stats
+    assert stats["kernel"]["copies"] == 0, stats
+    assert stats["plain"]["launches"] == 0, stats
+    assert stats["kernel"]["pasted"] > 0, stats
+    targets = len([i for i in set(labels["instance_tgt"].flat) if i])
+    print(f"conf_instance_mixup at {SOURCE_HEIGHT}x{SOURCE_WIDTH} (street "
+          f"labels, {targets} target things, conf_thresh {CONF_THRESH}, "
+          f"min_inst_size {MIN_INST_SIZE}): re-fused by the kernel and by "
+          f"the plain grouping, equal rgb, semantic and instance; pasted "
+          f"{stats['kernel']['pasted']}, conflicts "
+          f"{stats['kernel']['conflicts']}; grouping launches "
+          f"{stats['kernel']['launches']}, layout copies "
+          f"{stats['kernel']['copies']}; host clock {seconds['kernel']:.3f}"
+          f" s (kernel) / {seconds['plain']:.3f} s (plain)")
+    return {"pasted": stats["kernel"]["pasted"],
+            "conflicts": stats["kernel"]["conflicts"],
+            "target_things": targets, "seconds": seconds}
+
+
+def drive_host_mixup_stream(torch, runner, card, max_frames):
+    """``drive_stream`` on the host mixup path: the teacher eval, the GT
+    map, the pseudo-label stack and one re-fusion per conf_instance_mixup
+    item launch the kernel each frame. Also returns the host seconds of
+    each re-fusion (upload, fusion, readback)."""
+    from codeps_torch.data import mixup as mixup_lib
+    refuse = mixup_lib.refuse_instances
+    refusion_s = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = refuse(*args, **kwargs)
+        refusion_s.append(time.perf_counter() - t0)
+        return out
+
+    strategies = list(runner.cfg.adapt.mixup.general.mixup_strategies)
+    per_frame = 3 + strategies.count("conf_instance_mixup")
+    mixup_lib.refuse_instances = timed
+    try:
+        meters, run = drive_stream(torch, runner, card,
+                                   max_frames=max_frames,
+                                   launches_per_frame=per_frame)
+    finally:
+        mixup_lib.refuse_instances = refuse
+    run["refusion_s"] = refusion_s
+    return meters, run
 
 
 def main() -> int:
@@ -1921,7 +2120,6 @@ def main() -> int:
                                   device)
     finally:
         checkpoint.unlink(missing_ok=True)
-    del stream_modules
     load = parts["load"]
     print(f"checkpoint: {load['modules']} loaded, {load['tensors']} "
           f"tensors bit-equal to the saved ones")
@@ -2239,26 +2437,152 @@ def main() -> int:
     del depth_result, depth_data
     print(f"phase 9: {time.perf_counter() - phase_start:.3f} s")
 
-    phase("10 result")
+    phase("10 host mixup parts")
+    phase_start = time.perf_counter()
+    refusion = refusion_on_card(torch, device, rng)
+    small_target, small_source = (64, 192), (64, 128)
+    small_cfg = host_mixup_config(small_target, small_source, layers=18)
+    small_cfg.tpu.compute_dtype = "float32"
+    cpu_modules = init_params(build_modules(
+        small_cfg, NUM_CLASSES, device="cpu"), seed=SEED, device="cpu")
+    image = rng.integers(0, 256, (1, *small_target, 3), dtype=np.uint8)
+    calibrate_batch_norm(torch, cpu_modules, image)
+    small_shift = raise_pseudo_instances(torch, cpu_modules, image)
+    card_modules = copy.deepcopy(cpu_modules)
+    small = {}
+    for name, mods, dev in (("card", card_modules, device),
+                            ("cpu", cpu_modules, torch.device("cpu"))):
+        small_runner, _ = build_stream(small_cfg, mods, dev, SEED,
+                                       noise=numpy_noise(torch, SEED, dev))
+        small_meters, small_run = drive_host_mixup_stream(
+            torch, small_runner, card=name == "card", max_frames=3)
+        assert small_run["frames"] == 3 and not small_runner.fused_mixup
+        small[name] = (meter_values(small_meters), small_run["pq_maps"],
+                       small_runner.pasted_instances)
+    min_size = small_cfg.adapt.mixup.conf_instance_mix.min_inst_size
+    print(f"64x192 host mixup stream (ResNet-18, float32, thing logits "
+          f"{small_shift[0]:+.4f}, center bias {small_shift[1]:+.4f}, "
+          f"min_inst_size {min_size}): pasted instances per frame card "
+          f"{small['card'][2]}, CPU {small['cpu'][2]}")
+    for key, tol in (("p_pq", PQ_TOL), ("sem_miou", MIOU_TOL),
+                     ("d_abs_rel", ABS_REL_TOL)):
+        card, cpu = small["card"][0][key], small["cpu"][0][key]
+        print(f"64x192 host mixup stream card vs CPU {key}: {card:.6g} vs "
+              f"{cpu:.6g}, |diff| {abs(card - cpu):.3g} (bound {tol})")
+        assert abs(card - cpu) <= tol, key
+    assert set(small["card"][0]) == set(small["cpu"][0])
+    assert "semantic_conf_instance_mixup" in small["cpu"][0]
+    for (gt_card, _), (gt_cpu, _) in zip(small["card"][1], small["cpu"][1]):
+        assert np.array_equal(gt_card, gt_cpu), "GT panoptic map card != CPU"
+    print("64x192 host mixup stream: GT panoptic maps card == CPU")
+    del card_modules, cpu_modules, small_runner, small_meters
+    print(f"phase 10: {time.perf_counter() - phase_start:.3f} s")
+
+    phase("11 host mixup stream")
+    phase_start = time.perf_counter()
+    cfg = host_mixup_config(target_size, source_size)
+    host_modules = copy.deepcopy(stream_modules).to(device)
+    del stream_modules
+    thing_shift = shift_thing_logits(torch, host_modules, rng.integers(
+        0, 256, (1, HEIGHT, WIDTH, 3), dtype=np.uint8))
+    runner, buffer = build_stream(cfg, host_modules, device, SEED)
+    del host_modules
+    assert not runner.fused_mixup
+    meters, run = drive_host_mixup_stream(torch, runner, True,
+                                          HOST_MIXUP_FRAMES)
+    assert run["frames"] == HOST_MIXUP_FRAMES, run["frames"]
+    host_launches, host_copies = run["launches"], run["copies"]
+    host_err = run["max_abs_err"]
+    refusion_shape = (1, SOURCE_HEIGHT, SOURCE_WIDTH)
+    prep_shape = (NUM_MIXUP, HEIGHT, WIDTH)
+    centers = {shape: [c for c, s in zip(run["centers"], run["shapes"])
+                       if s == shape] for shape in (prep_shape,
+                                                    refusion_shape)}
+    pasted = list(runner.pasted_instances)
+    print(f"host mixup stream, the phase-7 config with strategies "
+          f"{list(cfg.adapt.mixup.general.mixup_strategies)}, "
+          f"conf_thresh {CONF_THRESH}, min_inst_size {MIN_INST_SIZE}, thing "
+          f"logits {thing_shift:+.4f}: grouping launches {host_launches} in "
+          f"{run['frames']} frames, layout copies {host_copies}; kernel == "
+          f"plain on all {len(run['centers'])} calls")
+    print(f"host mixup: valid centers per pseudo-label stack "
+          f"{'x'.join(map(str, prep_shape))} {centers[prep_shape]}; per "
+          f"re-fusion {'x'.join(map(str, refusion_shape))} "
+          f"{centers[refusion_shape]}; instances pasted per frame {pasted}")
+    assert len(centers[refusion_shape]) == HOST_MIXUP_FRAMES
+    assert sum(pasted) > 0, pasted
+    check_gt_maps(run["pq_maps"], runner.stuff_list, runner.thing_list)
+    host_values = meter_values(meters)
+    assert meters["losses"]["semantic_conf_instance_mixup"].count \
+        == HOST_MIXUP_FRAMES
+    host_numbers = stream_numbers(runner, run)
+    print_stream("host mixup", host_numbers)
+    mixup_ms = {name: statistics.median(t[WARMUP_FRAMES:]) * 1e3
+                for name, t in runner.mixup_phases.items()}
+    refusion_ms = [t * 1e3 for t in run["refusion_s"]]
+    mixup_ms["refusion"] = statistics.median(refusion_ms[WARMUP_FRAMES:])
+    print("host mixup: main thread in _compose_mixups per frame, median "
+          "ms: " + ", ".join(f"{k} {v:.3f}" for k, v in mixup_ms.items())
+          + f" (conf_instance_mixup includes the re-fusion); re-fusion "
+          f"(upload, fusion, readback) all {[round(t, 3) for t in refusion_ms]}")
+    print(f"host mixup against the fused stream of phase 7: "
+          f"{host_numbers['frame_ms']:.3f} against "
+          f"{published['frame_ms']:.3f} ms a frame, "
+          f"{host_numbers['frames_per_s']:.3f} against "
+          f"{published['frames_per_s']:.3f} frames/s, peak "
+          f"{host_numbers['peak_mib']:.1f} against "
+          f"{published['peak_mib']:.1f} MiB")
+    print("host mixup final meters: " + ", ".join(
+        f"{k} {host_values[k]:.6g}" for k in (
+            "p_pq", "sem_miou", "d_abs_rel", "semantic_cut_mixup",
+            "semantic_conf_instance_mixup")))
+    for path, shape in (("host_mixup_prep", prep_shape),
+                        ("host_mixup_refusion", refusion_shape)):
+        t_ms, t_bound_ms, t_bound_by, counts = time_grouping_call(
+            torch, run["last_by_shape"][shape])
+        by_shape.append({"path": path, "shape": list(shape),
+                         "valid_centers": counts, "ms": t_ms,
+                         "bound_ms": t_bound_ms, "bound_by": t_bound_by})
+        print(f"group_pixels, last {path} call "
+              f"{'x'.join(map(str, shape))}, {counts} valid of {TOP_K}: "
+              f"kernel device time {t_ms * 1e3:.3f} us; bound "
+              f"{t_bound_ms * 1e3:.3f} us ({t_bound_by})")
+    host_mixup = {
+        "config": "cfg/adapt_cityscapes_kitti_360.yaml, strategies "
+                  "[cut_mixup, conf_instance_mixup]",
+        "stream": {k: host_numbers[k] for k in (
+            "frames", "frame_ms", "frame_min_ms", "frame_max_ms",
+            "frames_per_s", "getitem_ms", "add_ms", "peak_mib")},
+        "compose_ms": mixup_ms, "refusion_all_ms": refusion_ms,
+        "pasted": pasted, "prep_centers": centers[prep_shape],
+        "refusion_centers": centers[refusion_shape],
+        "refusion_parts": refusion,
+        "p_pq": host_values["p_pq"], "sem_miou": host_values["sem_miou"],
+        "d_abs_rel": host_values["d_abs_rel"]}
+    del runner, buffer, meters, run
+    print(f"phase 11: {time.perf_counter() - phase_start:.3f} s")
+
+    phase("12 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
         "replaces": "codeps_tpu/ops/pallas/grouping.py:30",
         "launches": (launches + adapt_launches + stream_launches
                      + sum(cli_launches.values())
-                     + sum(train_launches.values())),
+                     + sum(train_launches.values()) + host_launches),
         "launches_by_path": {"serve": launches, "adapt": adapt_launches,
                              "stream": stream_launches,
                              **{f"cli_{k}": v
                                 for k, v in cli_launches.items()},
-                             **train_launches},
+                             **train_launches, "host_mixup": host_launches},
         "copies_by_path": {"serve": copies, "adapt": adapt_copies,
                            "stream": stream_copies,
                            **{f"cli_{k}": v
                               for k, v in cli_copies.items()},
-                           **train_copies},
+                           **train_copies, "host_mixup": host_copies},
         "exact": True,
-        "max_abs_err": max(max_err, stream_err, cli_err, train_err),
+        "max_abs_err": max(max_err, stream_err, cli_err, train_err,
+                           host_err),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
@@ -2293,6 +2617,7 @@ def main() -> int:
     print(json.dumps({"train": {**train_numbers, "launches": train_launches,
                                 "copies": train_copies,
                                 "depth_only": depth_numbers}}))
+    print(json.dumps({"host_mixup_stream": host_mixup}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

@@ -4,6 +4,8 @@
 ``codeps_tpu/ops/grid_sample.py:33``: ``F.grid_sample`` with
 ``align_corners=True``, the reference's warper call.
 
+``grid_sample_pair`` is the plain pair of samplings that
+``grid_sample.py:238`` packs into one gather on the TPU.
 ``prewarp_host`` and ``grid_sample_pair_pre`` are the counterparts of the
 mixup camera-to-camera warp (``grid_sample.py:142-235``). The tap anchors
 are integers decided on the host in float64 and the weights float32, so
@@ -29,6 +31,19 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
     coordinates in [-1, 1]; returns (B, C, Ho, Wo)."""
     return F.grid_sample(img, grid.to(img.dtype), mode=mode,
                          padding_mode=padding_mode, align_corners=True)
+
+
+def grid_sample_pair(img_lin: torch.Tensor, img_nn: torch.Tensor,
+                     grid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two samplings of one (B, Ho, Wo, 2) grid of NHWC images, the plain
+    form of ``codeps_tpu/ops/grid_sample.py:238``: ``img_lin`` (B, H, W,
+    Cl) bilinear with zeros padding and ``img_nn`` (B, H, W, Cn) nearest
+    with border padding. Both come back NHWC in ``img_lin``'s dtype."""
+    lin = grid_sample(img_lin.permute(0, 3, 1, 2), grid, "bilinear",
+                      "zeros")
+    nn = grid_sample(img_nn.to(img_lin.dtype).permute(0, 3, 1, 2), grid,
+                     "nearest", "border")
+    return lin.permute(0, 2, 3, 1), nn.permute(0, 2, 3, 1)
 
 
 def prewarp_host(x, y, height: int, width: int) -> Dict[str, np.ndarray]:

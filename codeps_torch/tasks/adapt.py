@@ -60,7 +60,8 @@ from codeps_torch.tasks.state import DIST_BUFFER_LEN, AdaptState
 
 __all__ = ["DIST_BUFFER_LEN", "batch_to_device", "build_eval_forward",
            "make_eval_step", "make_gt_panoptic_step", "skip_decision",
-           "push_ring_buffer", "compose_mixup", "make_adapt_step"]
+           "push_ring_buffer", "teacher_labels", "make_plabel_step",
+           "compose_mixup", "make_adapt_step"]
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -204,6 +205,36 @@ def push_ring_buffer(dist_buffer: torch.Tensor, dist_count: torch.Tensor,
 # ------------------------------------------------------------------ mixup
 
 @torch.no_grad()
+def teacher_labels(teacher, images: torch.Tensor, with_instance=False):
+    """The teacher's pseudo-labels of normalized NHWC ``images``: the
+    argmax of its semantic head (B, H, W) int64, and with
+    ``with_instance`` the instance head's center (B, H, W, 1) and offsets
+    (B, H, W, 2), NHWC views of its NCHW output (the layout the grouping
+    kernel reads in place)."""
+    feats = apply_encoder(teacher.backbone_po_depth, images)
+    sem_pred = teacher.semantic_head(feats).argmax(dim=1)
+    if not with_instance:
+        return sem_pred
+    center, offset, _ = teacher.instance_head(feats)
+    return sem_pred, _nhwc(center), _nhwc(offset)
+
+
+def make_plabel_step(mean, std):
+    """The teacher's predictions on a stack of mixup target images
+    (``adapt.py:145-172``): ``plabel_step(teacher, images (B, H, W, 3)
+    uint8 or normalized float) -> (semantic (B, H, W) int32, center (B, H,
+    W, 1), offset (B, H, W, 2))``."""
+    mean, std = tuple(mean), tuple(std)
+
+    def plabel_step(teacher, images):
+        sem_pred, center, offset = teacher_labels(
+            teacher, maybe_normalize(images, mean, std), with_instance=True)
+        return sem_pred.to(torch.int32), center, offset
+
+    return plabel_step
+
+
+@torch.no_grad()
 def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
                   geom_augment: bool, mean, std):
     """The fused mixup samples of a batch's raw materials
@@ -220,8 +251,7 @@ def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
     rgb_tgt = maybe_normalize(mixup["rgb_tgt"], mean, std)
     rgb_src = maybe_normalize(mixup["rgb_src"], mean, std)
     semantic_src = mixup["semantic_src"].long()
-    sem_pred = teacher.semantic_head(apply_encoder(
-        teacher.backbone_po_depth, rgb_tgt)).argmax(dim=1)
+    sem_pred = teacher_labels(teacher, rgb_tgt)
     if geom_augment:
         rgb_w, sem_w = grid_sample_pair_pre(rgb_tgt, sem_pred[..., None],
                                             mixup["prewarp"])

@@ -6,31 +6,39 @@ of the replay buffer's target stream:
   1. the replay buffer assembles the frame's sample (target, source and
      target replay, mixup raw materials) one frame ahead, in a worker
      thread;
-  2. the adaptation step (``tasks/adapt.py``) composes the cut/class
-     mixup samples, evaluates the teacher on the frame (panoptic fusion
-     with the grouping kernel) and updates the student and the teacher;
-     at ``nof_adaptation_steps`` > 1 only the first step evaluates, the
-     losses are averaged over the steps and the EMA blend happens on the
-     last;
-  3. the GT panoptic map of the frame is fused on the device (the
+  2. the mixup samples: when every strategy is ``cut_mixup`` or
+     ``class_mixup`` the adaptation step composes them itself (the fused
+     path); otherwise (``conf_instance_mixup``) the host composes them
+     (``_compose_mixups``): one pseudo-label call on the teacher
+     (``tasks/mixup_prep.py``: panoptic fusion with the grouping kernel and
+     the camera warp for the whole stack), the readback, then numpy
+     composition per item (``data/mixup.py``), whose instance paste
+     re-fuses the warped map at ``conf_thresh`` on the device;
+  3. the adaptation step (``tasks/adapt.py``) evaluates the teacher on
+     the frame (panoptic fusion with the grouping kernel) and updates the
+     student and the teacher; at ``nof_adaptation_steps`` > 1 only the
+     first step evaluates, the losses are averaged over the steps and the
+     EMA blend happens on the last;
+  4. the GT panoptic map of the frame is fused on the device (the
      grouping kernel's second launch of the frame);
-  4. the meters (losses, depth, per-class depth, confusion matrix, mIoU,
+  5. the meters (losses, depth, per-class depth, confusion matrix, mIoU,
      PQ) take the previous frame's results, in frame order;
-  5. the previous frame joins the diversity buffer (the add is deferred
+  6. the previous frame joins the diversity buffer (the add is deferred
      by one frame).
 
 The orderings that decide the numbers are the JAX runner's: one frame of
 prefetch and the deferred add, so frame it+1 is sampled after the add of
 frame it-2 and before that of frame it-1; ``mixup_rng`` draws the cut
-cells and class tables in canonical strategy order. Where the JAX runner
+cells and class tables in canonical strategy order (during batch assembly
+on the fused path, inside ``Mixup`` on the host path). Where the JAX runner
 starts asynchronous device-to-host copies, this one makes non-blocking
 copies right after a frame's work is queued and waits on an event for
 them once the next frame's work is queued, so the host reads the meters
 while the card runs the next frame.
 
-Only the fused mixup path is here (``cut_mixup``/``class_mixup``, with or
-without the camera warp); ``conf_instance_mixup`` composes on the host
-(``data/mixup.py``) and raises ``NotImplementedError``.
+Without the camera warp (``geom_augment: false``) the host path labels the
+stack with ``make_plabel_step`` and composes each item with
+``Mixup.do_mixup``, as the JAX runner does.
 """
 
 from __future__ import annotations
@@ -42,13 +50,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from codeps_torch.data.mixup import Mixup
 from codeps_torch.evaluation import (AverageMeter, ConfusionMatrixMeter,
                                      ConstantMeter, PanopticEvaluator,
                                      compute_sem_miou)
 from codeps_torch.tasks.adapt import (batch_to_device, build_eval_forward,
                                       make_adapt_step, make_eval_step,
-                                      make_gt_panoptic_step)
-from codeps_torch.tasks.mixup_prep import c2c_prewarp
+                                      make_gt_panoptic_step,
+                                      make_plabel_step)
+from codeps_torch.tasks.mixup_prep import c2c_prewarp, make_plabel_prep_step
 from codeps_torch.tasks.state import AdaptState, make_adapt_state
 
 MIXUP_KEYS = ("cut_mixup", "class_mixup", "conf_instance_mixup")
@@ -177,21 +187,26 @@ class AdaptationRunner:
         self.gt_panoptic = make_gt_panoptic_step(self.thing_list,
                                                  self.num_classes)
 
+        self.mixup_active = cfg.adapt.mixup.general.active
         num_mixup = (cfg.adapt.mixup.general.nof_samples
-                     if cfg.adapt.mixup.general.active else 0)
+                     if self.mixup_active else 0)
         strategies = list(cfg.adapt.mixup.general.mixup_strategies)
         # one sub-batch per strategy, in canonical order; each gets one
         # pooled CE (the reference's per-key loss)
         mixup_groups = tuple(
             (name, strategies.count(name)) for name in MIXUP_KEYS
             if name in strategies) if num_mixup else ()
+        # the step composes cut and class mixup itself; conf_instance_mixup
+        # (the sequential instance paste) composes on the host
+        self.fused_mixup = num_mixup > 0 and all(
+            s in ("cut_mixup", "class_mixup") for s in strategies)
         self.disable_adaptation = cfg.adapt.mode == "off"
-        if num_mixup and not self.disable_adaptation and any(
-                s not in ("cut_mixup", "class_mixup") for s in strategies):
-            raise NotImplementedError(
-                "conf_instance_mixup composes on the host (data/mixup.py, "
-                "the unfused runner path), which the next slice of the port "
-                f"brings; strategies: {strategies}")
+        self._norm_mean = tuple(cfg.dataset.normalization.rgb_mean)
+        self._norm_std = tuple(cfg.dataset.normalization.rgb_std)
+        self.plabel_step = make_plabel_step(self._norm_mean, self._norm_std)
+        self.plabel_prep = make_plabel_prep_step(
+            self.thing_list, self.num_classes, self._norm_mean,
+            self._norm_std)
         self._mixup_src_size = tuple(cfg.adapt.source_dataset.feed_img_size)
         if (num_mixup and "cut_mixup" in strategies
                 and not cfg.adapt.mixup.general.geom_augment
@@ -208,7 +223,7 @@ class AdaptationRunner:
             class_wise_depth_stats=do_class_wise)
         common = dict(cfg=cfg, class_weights=class_weights,
                       num_mixup=num_mixup, mixup_groups=mixup_groups,
-                      fused_mixup=num_mixup > 0,
+                      fused_mixup=self.fused_mixup,
                       sem_ignore_classes=list(self.ignore_classes) or None)
         # steps after the first of a frame do not evaluate the teacher
         self.steps = {(replay, evaluate): make_adapt_step(
@@ -228,6 +243,11 @@ class AdaptationRunner:
         # host seconds of each part of an adapted frame on the main thread
         # (the previous frame's meters wait for its device work)
         self.frame_phases: Dict[str, List[float]] = {}
+        # on the host mixup path with the camera warp: host seconds of its
+        # parts (prep, readback, then each strategy's composition) and the
+        # instances each conf_instance_mixup item pasted
+        self.mixup_phases: Dict[str, List[float]] = {}
+        self.pasted_instances: List[int] = []
 
     # ------------------------------------------------------------------
 
@@ -270,7 +290,7 @@ class AdaptationRunner:
             gt["depth_gt"] = np.asarray(target["depth"], np.float32)[None]
         return gt
 
-    def _adapt_batch(self, sample) -> Dict[str, Any]:
+    def _adapt_batch(self, sample, mixup_samples=()) -> Dict[str, Any]:
         def stack_domain(items, keys):
             domain = {
                 "frames": np.concatenate([frames_from_sample(item,
@@ -308,7 +328,7 @@ class AdaptationRunner:
 
         fused_items = [(key, item) for key in ("cut_mixup", "class_mixup")
                        for item in sample.get(key, [])]
-        if fused_items:
+        if self.fused_mixup and fused_items:
             # the mask materials, drawn in canonical strategy order from
             # the runner's generator
             items = [item for _, item in fused_items]
@@ -348,7 +368,117 @@ class AdaptationRunner:
             if class_replace:
                 mixup["class_replace"] = np.stack(class_replace)
             batch["mixup"] = mixup
+        elif mixup_samples:
+            # composed on the host, in canonical strategy order; no loss
+            # reads their center/offset
+            batch["mixup"] = {
+                "rgb": np.stack([np.asarray(m["rgb"][0], np.float32)
+                                 for m in mixup_samples]),
+                "semantic": np.stack([np.asarray(m["semantic"], np.int32)
+                                      for m in mixup_samples])}
         return batch
+
+    def _host_normalize(self, img) -> np.ndarray:
+        """The host's twin of ``maybe_normalize``: the composed images are
+        float, which the step takes as normalized, so uint8 frames are
+        normalized here before they are mixed with the teacher's
+        normalized warps."""
+        img = np.asarray(img)
+        if img.dtype != np.uint8:
+            return img.astype(np.float32)
+        mean = np.asarray(self._norm_mean, np.float32)
+        std = np.asarray(self._norm_std, np.float32)
+        return (img.astype(np.float32) / 255.0 - mean) / std
+
+    def _compose_mixups(self, sample) -> List[Dict[str, Any]]:
+        """The frame's mixup samples on the host path
+        (``adapt_loop.py:407-474``): one pseudo-label call on the teacher
+        for the whole stack (fusion and warp on the device), the readback,
+        then numpy composition per item in canonical strategy order."""
+        items = [(key, item) for key in MIXUP_KEYS
+                 for item in sample.get(key, [])]
+        if not items:
+            return []
+        cfg_mixup = self.cfg.adapt.mixup
+        if not cfg_mixup.general.geom_augment:
+            return self._compose_mixups_unfused(items)
+
+        mark = _phase_clock(self.mixup_phases, time.perf_counter())
+        rgb_tgt = np.stack([np.asarray(item["rgb_tgt"][0])
+                            for _, item in items])
+        if rgb_tgt.dtype != np.uint8:
+            rgb_tgt = rgb_tgt.astype(np.float32)
+        intr_src = np.stack([np.asarray(item["camera_model_src"], np.float32)
+                             for _, item in items])
+        intr_tgt = np.stack([np.asarray(item["camera_model_tgt"], np.float32)
+                             for _, item in items])
+        warped = self.plabel_prep(
+            self.state.teacher, torch.from_numpy(rgb_tgt).to(self.device),
+            self._c2c_prewarp_cached(intr_tgt, intr_src, rgb_tgt.shape[1:3]))
+        mark("prep")
+        rgb_w, sem_w, inst_w = (t.cpu().numpy() for t in warped)
+        mark("readback")
+
+        composed = []
+        for i, (strategy, item) in enumerate(items):
+            # rgb_w is normalized; the source frame must match its scale
+            img_src = self._host_normalize(item["rgb_src"][0])
+            semantic_src = np.asarray(item["semantic_src"])
+            instance_src = np.asarray(item["instance_src"])
+            if strategy == "cut_mixup":
+                rgb, semantic, instance = Mixup.cut_mixup(
+                    self.mixup_rng, img_src, rgb_w[i], instance_src,
+                    semantic_src, sem_w[i], inst_w[i],
+                    cfg_mixup.cut_mix.nof_vert_splits,
+                    cfg_mixup.cut_mix.nof_hor_splits,
+                    cfg_mixup.cut_mix.nof_segments)
+            elif strategy == "class_mixup":
+                rgb, semantic, instance = Mixup.class_mixup(
+                    self.mixup_rng, img_src, rgb_w[i], instance_src,
+                    semantic_src, sem_w[i], inst_w[i])
+            else:
+                stats: Dict[str, int] = {}
+                rgb, semantic, instance = Mixup.conf_instance_mixup(
+                    img_src, rgb_w[i], instance_src, semantic_src,
+                    sem_w[i], inst_w[i],
+                    cfg_mixup.conf_instance_mix.min_inst_size,
+                    thing_list=self.thing_list,
+                    num_classes=self.num_classes,
+                    conf_thresh=cfg_mixup.conf_instance_mix.conf_thresh,
+                    device=self.device, stats=stats)
+                self.pasted_instances.append(stats["pasted"])
+            composed.append({"rgb": {0: rgb},
+                             "camera_model": item["camera_model_src"],
+                             "semantic": semantic, "instance": instance,
+                             "strategy": strategy})
+            mark(strategy)
+        return composed
+
+    def _compose_mixups_unfused(self, items) -> List[Dict[str, Any]]:
+        """The host path without the camera warp
+        (``adapt_loop.py:476-508``): the teacher's predictions for the
+        stack, then ``Mixup.do_mixup`` per item. The frames are normalized
+        on the host once, so the teacher and the composition see the same
+        floats."""
+        rgb_tgt = np.stack([self._host_normalize(item["rgb_tgt"][0])
+                            for _, item in items])
+        sem, center, offset = (t.cpu().numpy() for t in self.plabel_step(
+            self.state.teacher, torch.from_numpy(rgb_tgt).to(self.device)))
+        composed = []
+        for i, (strategy, item) in enumerate(items):
+            data = dict(item)
+            data["rgb_tgt"] = {0: rgb_tgt[i]}
+            data["rgb_src"] = {0: self._host_normalize(item["rgb_src"][0])}
+            data["semantic_pred_tgt_ema"] = sem[i]
+            data["center_pred_tgt_ema"] = center[i]
+            data["offset_pred_tgt_ema"] = offset[i]
+            out = Mixup.do_mixup(strategy, data, self.thing_list,
+                                 self.cfg.adapt.mixup, rng=self.mixup_rng,
+                                 num_classes=self.num_classes,
+                                 get_off_cen=False, device=self.device)
+            out["strategy"] = strategy
+            composed.append(out)
+        return composed
 
     def _c2c_prewarp_cached(self, intr_sampled, intr_out, sampled_size):
         """The warp's taps on the device, cached by the camera pair: a
@@ -551,10 +681,15 @@ class AdaptationRunner:
                         on_frame(it)
                     continue
 
-                batch = batch_to_device(self._adapt_batch(sample),
+                mark = _phase_clock(self.frame_phases, start)
+                mixup_samples = []
+                if self.mixup_active and not self.fused_mixup:
+                    mixup_samples = self._compose_mixups(sample)
+                    mark("mixup")
+                batch = batch_to_device(self._adapt_batch(sample,
+                                                          mixup_samples),
                                         self.device)
                 batch["eval_gt"] = eval_gt
-                mark = _phase_clock(self.frame_phases, start)
                 mark("batch")
                 replay = "target_replay" in batch
                 results = stats = features = accum = None

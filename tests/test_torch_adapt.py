@@ -67,6 +67,15 @@ LIVE = ("backbone_pose_sflow", "depth_head", "pose_head", "semantic_head")
 REL_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configure(cfg):
     cfg.model.po_depth_net.params.nof_layers = 18
     cfg.model.pose_sflow_net.params.nof_layers = 18

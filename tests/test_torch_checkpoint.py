@@ -33,6 +33,15 @@ from codeps_torch.models import build_modules, init_params
 NC = 14
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _configure(cfg):
     cfg.model.po_depth_net.params.nof_layers = 18
     cfg.dataset.feed_img_size = [32, 64]

@@ -19,6 +19,15 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "codeps_tpu", "yaml", "PIL",
            "cv2")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_every_module_imports_without_jax_or_codeps_tpu():
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
@@ -153,14 +162,16 @@ def test_runner_raises_without_a_card_and_on_host_mixup(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
                          _target_stub())
-    # the defaults' conf_instance_mixup composes on the host: a later slice
-    with pytest.raises(NotImplementedError, match="conf_instance_mixup"):
-        AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
-                         _target_stub(), device="cpu")
+    # the defaults' conf_instance_mixup composes on the host
+    runner = AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
+                              _target_stub(), device="cpu")
+    assert list(cfg.adapt.mixup.general.mixup_strategies) == [
+        "cut_mixup", "conf_instance_mixup"]
+    assert runner.device == torch.device("cpu") and not runner.fused_mixup
     cfg.adapt.mixup.general.mixup_strategies = ["cut_mixup", "class_mixup"]
     runner = AdaptationRunner(cfg, build_modules(cfg, 14, device="cpu"),
                               _target_stub(), device="cpu")
-    assert runner.device == torch.device("cpu")
+    assert runner.device == torch.device("cpu") and runner.fused_mixup
 
 
 def test_train_state_raises_without_a_card(no_cuda):

@@ -20,6 +20,15 @@ from codeps_torch.ops import grouping
 THINGS = (9, 10, 11, 12, 13)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cases():
     """name -> (centers (B, K, 2), valid (B, K), offsets (B, H, W, 2))."""
     rng = np.random.default_rng(17)

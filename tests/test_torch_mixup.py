@@ -49,6 +49,15 @@ GROUPS = (("cut_mixup", 1), ("class_mixup", 1))
 REL_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _camera(intrinsics, full, size):
     """``intrinsics`` of an image of ``full`` (W, H) scaled to ``size``
     (H, W)."""

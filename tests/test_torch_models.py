@@ -47,6 +47,15 @@ NUM_CLASSES = 14
 REL_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _perturb(tree, rng, path=()):
     """Redraw BatchNorm statistics/affines and conv biases in place."""
     for key, value in tree.items():

@@ -30,7 +30,6 @@ that an argmax flips for about 1% of a frame's pixels per step.
 """
 
 import random
-import threading
 
 import numpy as np
 import pytest
@@ -58,7 +57,7 @@ from codeps_torch.data.synthetic import (make_cityscapes_tree,
 from codeps_torch.io import from_jax
 from codeps_torch.models import build_modules
 from codeps_torch.tasks.adapt_loop import AdaptationRunner
-from torch_parity import JaxNoise
+from torch_parity import JaxNoise, SequencedJaxBuffer
 
 NC = 14
 FRAMES = 4
@@ -68,6 +67,15 @@ PQ_TOL = 0.005        # 0.5 percentage points, as a fraction
 MIOU_TOL = 0.005
 ABS_REL_TOL = 0.005
 LOSS_REL_TOL = 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _configure(cfg, k360_root, cs_root):
@@ -94,32 +102,6 @@ def _configure(cfg, k360_root, cs_root):
     cfg.tpu.compute_dtype = "float32"
     cfg.freeze()
     return cfg
-
-
-class SequencedJaxBuffer(JaxReplayBuffer):
-    """The JAX buffer whose ``add`` of frame i waits until the prefetch of
-    frame i + 2 is done: the port's order, with no race."""
-
-    def __init__(self, *args, num_frames, **kwargs):
-        super().__init__(*args, **kwargs)
-        self._done = set()
-        self._cond = threading.Condition()
-        self._num_frames = num_frames
-
-    def __getitem__(self, index):
-        out = super().__getitem__(index)
-        with self._cond:
-            self._done.add(index)
-            self._cond.notify_all()
-        return out
-
-    def add(self, index, image_features=None):
-        wait_for = index + 2
-        if wait_for < self._num_frames:
-            with self._cond:
-                self._cond.wait_for(lambda: wait_for in self._done,
-                                    timeout=300)
-        super().add(index, image_features)
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,15 @@ REL_TOL = 1e-4
 CENTER_BIAS = 0.12
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(defaults):
     cfg = defaults()
     cfg.model.po_depth_net.params.nof_layers = 50

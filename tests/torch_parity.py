@@ -1,12 +1,52 @@
 """Helpers shared by the port's parity tests (not collected: no test_
 prefix)."""
 
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from codeps_tpu.data.replay_buffer import ReplayBuffer as JaxReplayBuffer
+
 NUM_SCALES = 5
+
+
+class SequencedJaxBuffer(JaxReplayBuffer):
+    """The JAX buffer whose ``add`` of frame i waits until the prefetch of
+    frame i + 2 is done: the port's order, with no race."""
+
+    def __init__(self, *args, num_frames, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._done = set()
+        self._cond = threading.Condition()
+        self._num_frames = num_frames
+
+    def __getitem__(self, index):
+        out = super().__getitem__(index)
+        with self._cond:
+            self._done.add(index)
+            self._cond.notify_all()
+        return out
+
+    def add(self, index, image_features=None):
+        wait_for = index + 2
+        if wait_for < self._num_frames:
+            with self._cond:
+                self._cond.wait_for(lambda: wait_for in self._done,
+                                    timeout=300)
+        super().add(index, image_features)
+
+
+def raise_instances(params, things):
+    """JAX-made parameters whose teacher pseudo-labels hold instances: the
+    logits of the ``things`` classes raised and the center head's output
+    lifted, so that some of its local maxima pass the 0.1 threshold."""
+    params = jax.tree.map(np.array, params)
+    params["semantic_head"]["semconv_guda"]["bias"][list(things)] += 2.0
+    params["instance_head"]["center_head"]["conv"]["bias"] += 0.6
+    return params
 
 
 class JaxNoise:
