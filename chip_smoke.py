@@ -147,11 +147,34 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (prep, readback, each strategy, the re-fusion), instances pasted and
     valid centers per re-fusion, the peak memory against phase 7's fused
     stream, and the kernel's device time and bound at both new shapes;
-12. the ``kernels`` line (with the per-n times and bounds, the times at
-    the CLI's, pretraining's and the host mixup path's shapes and the
-    layout copies on each path), the ``adapt_step``, ``adapt_stream``,
-    ``adapt_cli``, ``train`` and ``host_mixup_stream`` lines, then the
-    last line ``{"ok": true, "device": {...}}``.
+12. scene flow: the flow head (``model.make_sflow`` with a live
+    ``adapt.model.sflow``; an 8-channel ResNet-18 pose net taking RGB-D
+    pairs, the other modules phase 4's) on (a) phase 6's adaptation step
+    and batch, one warm-up and FLOW_STEPS timed steps in bfloat16 and in
+    float32 from the same weights: finite flow losses, the student's
+    target motion pair (2, 1, 384, 1408, 3) in the eval results, one
+    launch a step with no layout copy; prints the step time, the peak
+    memory and the auto-mask's kept share of pixels; (b) phase 7's
+    stream with the flow head for FLOW_STREAM_FRAMES frames: 2 launches
+    a frame, each equal to its plain version, no copy; frame latency,
+    frames/s, peak memory; (c) phase 9's pretraining with the flow head
+    (every frame of the batch through the encoder in one pass) for
+    FLOW_TRAIN_STEPS steps at batch 6 at 512x1024, then validation with
+    losses at batch 2 (2 launches a batch, each equal to its plain
+    version); step time, images/s, peak memory; (d) one float32 flow
+    adaptation step at 64x192 (ResNet-18) and one float32 flow train
+    step at 64x128 (batch 2) from the same weights, batch and noise on
+    the card and on the CPU: every flow-head call's auto-mask equal
+    outside the tie band, the losses within FLOW_REL_TOL (REL_TOL for
+    the frozen instance head's and the total, and for those through the
+    mask if a pixel of the band flipped), the train step's BatchNorm
+    statistics within 1e-5;
+13. the ``kernels`` line (with the per-n times and bounds, the times at
+    the CLI's, pretraining's, the host mixup path's and the flow paths'
+    shapes and the launches and layout copies on each path), the
+    ``adapt_step``, ``adapt_stream``, ``adapt_cli``, ``train``,
+    ``host_mixup_stream`` and ``flow`` lines, then the last line
+    ``{"ok": true, "device": {...}}``.
 
 The full-width runs compute in bfloat16, the package default
 (``cfg.tpu.compute_dtype``, as the JAX package's); phase 6 also times the
@@ -269,6 +292,16 @@ CONF_THRESH, MIN_INST_SIZE = 0.98, 2000
 # shifted center head
 THING_SHARE = 0.5
 CENTER_SHARE = 1e-3
+# Scene flow (phase 12): timed adaptation steps after one warm-up, stream
+# frames (the first WARMUP_FRAMES not timed), pretraining steps (the first
+# TRAIN_WARMUP not timed). Card against CPU: losses within FLOW_REL_TOL
+# where the auto-masks agree; a pixel whose mask differs must lie within
+# TIE_BAND (relative) above the smallest norm its side kept.
+FLOW_STEPS = 3
+FLOW_STREAM_FRAMES = 6
+FLOW_TRAIN_STEPS = 5
+FLOW_REL_TOL = 1e-4
+TIE_BAND = 1e-4
 
 
 def phase(name):
@@ -1605,6 +1638,209 @@ def drive_host_mixup_stream(torch, runner, card, max_frames):
     return meters, run
 
 
+def flow_modules(torch, cfg, weights):
+    """The modules of flow config ``cfg`` on the host: seeded, then every
+    module of ``weights`` (the calibrated modules of phase 4) loaded into
+    its namesake; the 8-channel pose net and the flow head keep their
+    seeded weights."""
+    from codeps_torch.models import build_modules, init_params
+    modules = init_params(build_modules(cfg, NUM_CLASSES, device="cpu"),
+                          seed=SEED, device="cpu")
+    for name in weights.module_names():
+        if name != "backbone_pose_sflow":
+            getattr(modules, name).load_state_dict(
+                getattr(weights, name).state_dict())
+    return modules
+
+
+def flow_automask_noise(rng, target_size, source_size, num_scales):
+    """Automask normals for one flow adaptation step in the order it asks
+    for them: source, target, then replay scales (with a flow head target
+    and replay take separate passes)."""
+    import numpy as np
+    shapes = []
+    for batch, (height, width) in ((NUM_SOURCE, source_size),
+                                   (1, target_size),
+                                   (NUM_REPLAY, target_size)):
+        shapes += [(batch, 2, height >> s, width >> s)
+                   for s in range(num_scales)]
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in shapes]
+
+
+def recording_motion(module, records):
+    """Patch ``module.depth_forward`` to append each object-motion pair it
+    returns to ``records`` (NHWC numpy); returns the function to restore
+    it with."""
+    forward = module.depth_forward
+
+    def recording(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        records.append([m.detach().permute(0, 2, 3, 1).cpu().numpy()
+                        for m in out["object_motion_maps"]])
+        return out
+    module.depth_forward = recording
+
+    def restore():
+        module.depth_forward = forward
+    return restore
+
+
+def mask_flips(ours, ref):
+    """(pixels whose auto-mask differs, the largest relative distance of
+    such a pixel's norm above the smallest norm its side kept) for two
+    motion maps (..., 3) of one flow-head call. A differing pixel must lie
+    in the tie band: its norm within TIE_BAND of that side's threshold,
+    which the smallest kept norm bounds from above."""
+    import numpy as np
+    kept = [np.any(m != 0, axis=-1) for m in (ours, ref)]
+    differ = kept[0] != kept[1]
+    worst = 0.0
+    for m, k in zip((ours, ref), kept):
+        norm = np.sqrt((m * m).sum(-1))
+        if (differ & k).any():
+            worst = max(worst, float(norm[differ & k].max()
+                                     / norm[k].min() - 1.0))
+    assert worst <= TIE_BAND, \
+        f"auto-mask differs outside the tie band: {worst}"
+    return int(differ.sum()), worst
+
+
+def compare_motion(records):
+    """(pixels whose auto-mask differs, pixels, the largest relative
+    distance above the threshold) over the recorded motion pairs of the
+    card and the CPU."""
+    flips = pixels = 0
+    worst = 0.0
+    assert len(records["card"]) == len(records["cpu"]) > 0
+    for pair_card, pair_cpu in zip(records["card"], records["cpu"]):
+        for card, cpu in zip(pair_card, pair_cpu):
+            n, w = mask_flips(card, cpu)
+            flips += n
+            pixels += card.shape[0] * card.shape[1] * card.shape[2]
+            worst = max(worst, w)
+    return flips, pixels, worst
+
+
+# losses computed through the flow head's auto-mask: a pixel in the tie
+# band moves them by its own share
+MASKED_LOSSES = ("depth_recon", "flow_smth", "flow_sparsity", "loss_total")
+# the frozen instance head's losses: card against CPU they moved by 3.6e-4
+# in phase 6's 64x192 step on an H100, as REL_TOL says of its outputs
+INSTANCE_LOSSES = ("center_source", "offset_source", "loss_total")
+
+
+def check_flow_losses(name, card, cpu, flips):
+    """Each loss of the card within FLOW_REL_TOL of the CPU's; REL_TOL for
+    the instance head's, and for those through the auto-mask when a pixel
+    of the tie band flipped."""
+    assert set(card) == set(cpu), (set(card), set(cpu))
+    worst = 0.0
+    for key, ref in cpu.items():
+        tol = FLOW_REL_TOL
+        if key in INSTANCE_LOSSES or (flips and key in MASKED_LOSSES):
+            tol = REL_TOL
+        err = abs(card[key] - ref) / max(abs(ref), 1e-30)
+        print(f"{name} card vs CPU {key}: {card[key]:.6g} vs {ref:.6g}, "
+              f"rel err {err:.3g} (bound {tol})")
+        assert err <= tol, key
+        if key not in INSTANCE_LOSSES:
+            worst = max(worst, err)
+    return worst
+
+
+def flow_card_vs_cpu(torch, device, rng):
+    """(d): one float32 flow adaptation step at 64x192 (source 64x128,
+    ResNet-18) and one float32 flow train step at 64x128 (batch 2), each
+    from the same weights, batch and automask noise on the card and on the
+    CPU, TF32 off. Returns the numbers of the ``flow`` line."""
+    import numpy as np
+    from codeps_torch.models import build_modules, init_params
+    from codeps_torch.tasks import adapt as adapt_task
+    from codeps_torch.tasks import train as train_task
+    from codeps_torch.tasks.state import make_train_state
+    out = {}
+    target, source = (64, 192), (64, 128)
+    cfg = adapt_config(target, source)
+    cfg.model.make_sflow = cfg.adapt.model.sflow = True
+    cfg.model.po_depth_net.params.nof_layers = 18
+    cfg.tpu.compute_dtype = "float32"
+    batch = adapt_batch(rng, target, source)
+    noise = flow_automask_noise(rng, target, source,
+                                cfg.depth.num_recon_scales)
+    cpu_modules = init_params(build_modules(cfg, NUM_CLASSES, device="cpu"),
+                              seed=SEED, device="cpu")
+    calibrate_batch_norm(torch, cpu_modules, batch["target"]["frames"][:, 0])
+    card_modules = copy.deepcopy(cpu_modules)
+    losses, records = {}, {}
+    for name, mods, dev in (("card", card_modules, device),
+                            ("cpu", cpu_modules, torch.device("cpu"))):
+        records[name] = []
+        restore = recording_motion(adapt_task, records[name])
+        try:
+            state, step = build_adapt(torch, mods, cfg, dev)
+            metrics, _, results, _ = step(state, batch,
+                                          noise=injected(torch, noise, dev))
+        finally:
+            restore()
+        assert tuple(results["object_motion_map"].shape) == (2, 1, *target,
+                                                             3)
+        losses[name] = {k: float(v) for k, v in metrics.items()
+                        if k != "target_skipped"}
+    flips, pixels, worst = compare_motion(records)
+    print(f"64x192 flow step card vs CPU: auto-masks differ on {flips} of "
+          f"{pixels} pixels ({2 * len(records['cpu'])} flow-head calls), "
+          f"all within the tie band "
+          f"(largest {worst:.3g} above the threshold, bound {TIE_BAND})")
+    out["adapt"] = {"mask_flips": flips, "pixels": pixels,
+                    "tie_worst": worst,
+                    "max_rel_err": check_flow_losses(
+                        "64x192 flow step", losses["card"], losses["cpu"],
+                        flips)}
+
+    size = (64, 128)
+    cfg = train_config(size, layers=18, batch=2)
+    cfg.model.make_sflow = True
+    cfg.tpu.compute_dtype = "float32"
+    batch = train_batch(rng, 2, *size)
+    cpu_modules = init_params(build_modules(cfg, NUM_CLASSES, device="cpu"),
+                              seed=SEED, device="cpu")
+    step = train_task.make_train_step(cfg, list(cfg.semantics.class_weights))
+    losses, stats, records = {}, {}, {}
+    for name, mods, dev in (("card", copy.deepcopy(cpu_modules), device),
+                            ("cpu", cpu_modules, torch.device("cpu"))):
+        records[name] = []
+        restore = recording_motion(train_task, records[name])
+        try:
+            state = make_train_state(mods, 1e-4, seed=SEED, device=dev)
+            metrics = step(state, batch, noise=numpy_noise(torch, SEED, dev))
+        finally:
+            restore()
+        losses[name] = {k: float(v) for k, v in metrics.items()
+                        if v.ndim == 0 and not k.startswith("d_")}
+        stats[name] = {f"{n}.{k}": v.cpu() for n in mods.module_names()
+                       for k, v in getattr(mods, n).state_dict().items()
+                       if k.endswith(("running_mean", "running_var"))}
+    flips, pixels, worst = compare_motion(records)
+    print(f"64x128 flow train step card vs CPU: auto-masks differ on "
+          f"{flips} of {pixels} pixels, all within the tie band (largest "
+          f"{worst:.3g} above the threshold)")
+    stat_err = max(float((stats["card"][k] - v).abs().max()
+                         / (1.0 + float(v.abs().max())))
+                   for k, v in stats["cpu"].items())
+    print(f"64x128 flow train step card vs CPU BatchNorm running statistics "
+          f"(the depth encoder's from its 3B pass): max |diff| / (1 + max "
+          f"|value|) {stat_err:.3g} (bound {TRAIN_STAT_TOL}) over "
+          f"{len(stats['cpu'])} tensors")
+    assert stat_err <= TRAIN_STAT_TOL
+    out["train"] = {"mask_flips": flips, "pixels": pixels,
+                    "tie_worst": worst, "stat_err": stat_err,
+                    "max_rel_err": check_flow_losses(
+                        "64x128 flow train step", losses["card"],
+                        losses["cpu"], flips)}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2482,7 +2718,6 @@ def main() -> int:
     phase_start = time.perf_counter()
     cfg = host_mixup_config(target_size, source_size)
     host_modules = copy.deepcopy(stream_modules).to(device)
-    del stream_modules
     thing_shift = shift_thing_logits(torch, host_modules, rng.integers(
         0, 256, (1, HEIGHT, WIDTH, 3), dtype=np.uint8))
     runner, buffer = build_stream(cfg, host_modules, device, SEED)
@@ -2562,27 +2797,210 @@ def main() -> int:
     del runner, buffer, meters, run
     print(f"phase 11: {time.perf_counter() - phase_start:.3f} s")
 
-    phase("12 result")
+    phase("12 scene flow")
+    phase_start = time.perf_counter()
+    # (a) the adaptation step of phase 6 with the flow head live
+    flow_cfg = adapt_config(target_size, source_size)
+    flow_cfg.model.make_sflow = flow_cfg.adapt.model.sflow = True
+    host_flow = flow_modules(torch, flow_cfg, stream_modules)
+    del stream_modules
+    assert tuple(host_flow.backbone_pose_sflow.encoder.conv1.weight.shape) \
+        == (64, 8, 7, 7)
+    batch = batch_to_device(adapt_batch(rng, target_size, source_size),
+                            device)
+    flow_step_numbers = {}
+    for dtype in ("bfloat16", "float32"):
+        flow_cfg.tpu.compute_dtype = dtype
+        mods = copy.deepcopy(host_flow)
+        for name in mods.module_names():
+            getattr(mods, name).compute_dtype = getattr(torch, dtype)
+        state, step = build_adapt(torch, mods.to(device), flow_cfg, device)
+        assert "flow_head" in state.live_modules()
+        step(state, batch)                                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        grouping.group_pixels_cuda.launches = 0
+        grouping.group_pixels_cuda.copies = 0
+        seconds = []
+        for _ in range(FLOW_STEPS):
+            t0 = time.perf_counter()
+            metrics, features, results, stats = step(state, batch)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            check_adapt_outputs(torch, metrics, results, stats, HEIGHT,
+                                WIDTH)
+        motion = results["object_motion_map"]
+        assert tuple(motion.shape) == (2, 1, HEIGHT, WIDTH, 3), motion.shape
+        assert bool(torch.isfinite(motion).all())
+        numbers = {
+            "ms": statistics.median(seconds) * 1e3,
+            "all_ms": [t * 1e3 for t in seconds],
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "kept_share": [float((m != 0).any(-1).float().mean())
+                           for m in motion],
+            "launches": grouping.group_pixels_cuda.launches,
+            "copies": grouping.group_pixels_cuda.copies,
+            "losses": {k: float(v) for k, v in metrics.items()
+                       if k != "target_skipped"}}
+        assert numbers["launches"] == FLOW_STEPS, numbers["launches"]
+        assert numbers["copies"] == 0, numbers["copies"]
+        assert {"flow_smth", "flow_sparsity"} <= set(numbers["losses"])
+        flow_step_numbers[dtype] = numbers
+        print(f"flow adaptation step ({dtype}), phase 6's batch with the "
+              f"flow head live: {numbers['ms']:.3f} ms (median of "
+              f"{FLOW_STEPS} after a warm-up); all "
+              f"{[round(t, 3) for t in numbers['all_ms']]}; peak "
+              f"{numbers['peak_mib']:.1f} MiB; auto-mask keeps "
+              f"{numbers['kept_share']} of the target pair's pixels; "
+              f"grouping launches {numbers['launches']}, layout copies "
+              f"{numbers['copies']}; flow_smth "
+              f"{numbers['losses']['flow_smth']:.6g}, flow_sparsity "
+              f"{numbers['losses']['flow_sparsity']:.6g}")
+        del state, step, mods, metrics, features, results, stats, motion
+    flow_launches = {"flow_adapt": flow_step_numbers["bfloat16"]["launches"]}
+    flow_copies = {"flow_adapt": flow_step_numbers["bfloat16"]["copies"]}
+    print(f"flow adaptation step against phase 6's: "
+          f"{flow_step_numbers['bfloat16']['ms']:.3f} against "
+          f"{step_ms:.3f} ms in bfloat16, "
+          f"{flow_step_numbers['float32']['ms']:.3f} against "
+          f"{f32_step_ms:.3f} ms in float32")
+    del batch
+
+    # (b) phase 7's stream with the flow head
+    flow_cfg = stream_config(target_size, source_size)
+    flow_cfg.model.make_sflow = flow_cfg.adapt.model.sflow = True
+    runner, buffer = build_stream(flow_cfg, copy.deepcopy(host_flow).to(
+        device), device, SEED)
+    meters, run = drive_stream(torch, runner, card=True,
+                               max_frames=FLOW_STREAM_FRAMES)
+    assert run["frames"] == FLOW_STREAM_FRAMES, run["frames"]
+    check_gt_maps(run["pq_maps"], runner.stuff_list, runner.thing_list)
+    for name in ("flow_smth", "flow_sparsity"):
+        assert meters["losses"][name].count == FLOW_STREAM_FRAMES, name
+    flow_launches["flow_stream"] = run["launches"]
+    flow_copies["flow_stream"] = run["copies"]
+    flow_err = run["max_abs_err"]
+    print(f"flow stream: grouping launches {run['launches']} in "
+          f"{run['frames']} frames, layout copies {run['copies']}; kernel "
+          f"== plain on all {len(run['centers'])} calls")
+    flow_stream = stream_numbers(runner, run)
+    print_stream("flow stream", flow_stream)
+    flow_values = meter_values(meters)
+    print("flow stream final meters: " + ", ".join(
+        f"{k} {flow_values[k]:.6g}" for k in (
+            "p_pq", "sem_miou", "d_abs_rel", "flow_smth", "flow_sparsity")))
+    t_ms, t_bound_ms, t_bound_by, counts = time_grouping_call(
+        torch, run["last_by_shape"][(1, HEIGHT, WIDTH)])
+    by_shape.append({"path": "flow_stream", "shape": [1, HEIGHT, WIDTH],
+                     "valid_centers": counts, "ms": t_ms,
+                     "bound_ms": t_bound_ms, "bound_by": t_bound_by})
+    print(f"group_pixels, last flow stream call 1x{HEIGHT}x{WIDTH}, "
+          f"{counts} valid of {TOP_K}: kernel device time "
+          f"{t_ms * 1e3:.3f} us; bound {t_bound_ms * 1e3:.3f} us "
+          f"({t_bound_by})")
+    del runner, buffer, meters, run, host_flow
+
+    # (c) pretraining with the flow head at the yaml's batch
+    flow_cfg = train_config(train_size)
+    flow_cfg.model.make_sflow = True
+    datasets = train_datasets(flow_cfg, FLOW_TRAIN_STEPS * TRAIN_BATCH,
+                              TRAIN_VAL_IMAGES, SEED)
+    result, parts = drive_training(torch, flow_cfg, datasets, device,
+                                   max_steps=FLOW_TRAIN_STEPS)
+    assert len(result["metrics"]) == FLOW_TRAIN_STEPS
+    for metrics in result["metrics"]:
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        assert not bad, f"flow train metrics not finite: {bad}"
+        assert {"flow_smth", "flow_sparsity"} <= set(metrics)
+    steps = parts["steps"]
+    assert steps["launches"] == steps["copies"] == 0, steps
+    val = parts["val"][0]
+    val_batches = len(val["batch_s"])
+    assert val["launches"] == 2 * val_batches, val["launches"]
+    assert val["copies"] == 0, val["copies"]
+    flow_val = {k: float(v) for k, v in result["val"][0].items()
+                if np.ndim(v) == 0}
+    assert {"val_loss_flow_smth", "val_loss_flow_sparsity"} <= set(flow_val)
+    assert all(math.isfinite(v) for v in flow_val.values()), flow_val
+    flow_launches.update(flow_train=steps["launches"],
+                         flow_train_val=val["launches"])
+    flow_copies.update(flow_train=steps["copies"],
+                       flow_train_val=val["copies"])
+    flow_err = max(flow_err, parts["max_abs_err"])
+    timed = result["step_times"][TRAIN_WARMUP:]
+    val_ms = [t * 1e3 for t in val["batch_s"]]
+    flow_train = {
+        "config": "cfg/train_cityscapes.yaml with model.make_sflow: true",
+        "batch": TRAIN_BATCH, "size": list(train_size),
+        "step_ms": statistics.median(timed) * 1e3,
+        "images_per_s": TRAIN_BATCH / statistics.median(timed),
+        "all_step_ms": [t * 1e3 for t in result["step_times"]],
+        "loop_ms": statistics.median(np.diff(
+            steps["starts"][TRAIN_WARMUP:])) * 1e3,
+        "peak_mib": parts["peak"] / 2**20,
+        "val_batch_ms": statistics.median(val_ms), "val_all_ms": val_ms,
+        "last_step": result["metrics"][-1],
+        "val_flow": {k: flow_val[k] for k in ("val_loss_flow_smth",
+                                               "val_loss_flow_sparsity")}}
+    print(f"flow pretraining step (host clock, median of {len(timed)} "
+          f"after {TRAIN_WARMUP} warm-up): {flow_train['step_ms']:.3f} ms, "
+          f"{flow_train['images_per_s']:.3f} images/s; all "
+          f"{[round(t, 3) for t in flow_train['all_step_ms']]}; the loop's "
+          f"time a step {flow_train['loop_ms']:.3f} ms; peak device memory "
+          f"{flow_train['peak_mib']:.1f} MiB, against phase 9's "
+          f"{train_numbers['step_ms']:.3f} ms and "
+          f"{train_numbers['peak_mib']:.1f} MiB")
+    print(f"flow pretraining: grouping launches {steps['launches']} in "
+          f"{FLOW_TRAIN_STEPS} steps; validation {val['launches']} in "
+          f"{val_batches} batches, layout copies {val['copies']}, kernel "
+          f"== plain on all {len(parts['centers'])} calls; validation per "
+          f"batch {flow_train['val_batch_ms']:.3f} ms; "
+          + ", ".join(f"{k} {v:.6g}" for k, v in flow_val.items()
+                      if k.startswith("val_loss")))
+    t_ms, t_bound_ms, t_bound_by, counts = time_grouping_call(
+        torch, parts["last_call"])
+    by_shape.append({"path": "flow_train_val",
+                     "shape": list(parts["last_call"][2].shape[:3]),
+                     "valid_centers": counts, "ms": t_ms,
+                     "bound_ms": t_bound_ms, "bound_by": t_bound_by})
+    del result, parts, datasets
+
+    # (d) card against CPU in float32
+    flow_small = flow_card_vs_cpu(torch, device, rng)
+    flow_numbers = {
+        "adapt_step": flow_step_numbers, "stream": {
+            k: flow_stream[k] for k in (
+                "frames", "frame_ms", "frame_min_ms", "frame_max_ms",
+                "frames_per_s", "getitem_ms", "peak_mib")},
+        "train": flow_train, "card_vs_cpu": flow_small,
+        "launches": flow_launches, "copies": flow_copies,
+        "p_pq": flow_values["p_pq"], "d_abs_rel": flow_values["d_abs_rel"]}
+    print(f"phase 12: {time.perf_counter() - phase_start:.3f} s")
+
+    phase("13 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
         "replaces": "codeps_tpu/ops/pallas/grouping.py:30",
         "launches": (launches + adapt_launches + stream_launches
                      + sum(cli_launches.values())
-                     + sum(train_launches.values()) + host_launches),
+                     + sum(train_launches.values()) + host_launches
+                     + sum(flow_launches.values())),
         "launches_by_path": {"serve": launches, "adapt": adapt_launches,
                              "stream": stream_launches,
                              **{f"cli_{k}": v
                                 for k, v in cli_launches.items()},
-                             **train_launches, "host_mixup": host_launches},
+                             **train_launches, "host_mixup": host_launches,
+                             **flow_launches},
         "copies_by_path": {"serve": copies, "adapt": adapt_copies,
                            "stream": stream_copies,
                            **{f"cli_{k}": v
                               for k, v in cli_copies.items()},
-                           **train_copies, "host_mixup": host_copies},
+                           **train_copies, "host_mixup": host_copies,
+                           **flow_copies},
         "exact": True,
         "max_abs_err": max(max_err, stream_err, cli_err, train_err,
-                           host_err),
+                           host_err, flow_err),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
@@ -2618,6 +3036,7 @@ def main() -> int:
                                 "copies": train_copies,
                                 "depth_only": depth_numbers}}))
     print(json.dumps({"host_mixup_stream": host_mixup}))
+    print(json.dumps({"flow": flow_numbers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

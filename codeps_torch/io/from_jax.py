@@ -93,6 +93,22 @@ def pose_head(params: Mapping) -> StateDict:
     return sd
 
 
+def flow_head(params: Mapping) -> StateDict:
+    """Flax upconv_i_0, upconv_i_1 (i = 1..4) and translation -> the
+    reference's ``upconvs_0.i.0``, ``upconvs_1.i.0`` and
+    ``translation_layer.0``."""
+    sd: StateDict = {}
+    for i in range(5):
+        for j in ((0, 1) if i > 0 else (0,)):
+            conv = params[f"upconv_{i}_{j}"]["conv"]
+            sd[f"upconvs_{j}.{i}.0.weight"] = _conv(conv["kernel"])
+            sd[f"upconvs_{j}.{i}.0.bias"] = _vec(conv["bias"])
+    conv = params["translation"]["conv"]
+    sd["translation_layer.0.weight"] = _conv(conv["kernel"])
+    sd["translation_layer.0.bias"] = _vec(conv["bias"])
+    return sd
+
+
 def semantic_head(params: Mapping, use_guda_fusion: bool) -> StateDict:
     sd: StateDict = {}
     _decoder_convs(sd, params)
@@ -141,8 +157,9 @@ def state_dicts_from_jax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any],
                          cfg) -> Dict[str, StateDict]:
     """{module_name: state_dict} for every module of the JAX trees: the
-    two ResNet encoders and the depth, pose, semantic and instance heads.
-    The flow head is not ported yet and is skipped."""
+    two ResNet encoders (the pose encoder's conv1 over 6 or, with the
+    flow head, 8 channels) and the depth, pose, flow, semantic and
+    instance heads."""
     out: Dict[str, StateDict] = {}
     if "backbone_po_depth" in params:
         out["backbone_po_depth"] = resnet_encoder(
@@ -157,6 +174,8 @@ def state_dicts_from_jax(params: Mapping[str, Any],
         out["depth_head"] = depth_head(params["depth_head"])
     if "pose_head" in params:
         out["pose_head"] = pose_head(params["pose_head"])
+    if "flow_head" in params:
+        out["flow_head"] = flow_head(params["flow_head"])
     if "semantic_head" in params:
         out["semantic_head"] = semantic_head(
             params["semantic_head"], cfg.model.semantic_head.use_guda_fusion)

@@ -1,10 +1,11 @@
 """Photometric (view-reconstruction) losses.
 
-Counterpart of ``codeps_tpu/losses/photometric.py:31-200`` (the
-reference's SSIMLoss and ReconstructionLoss), NCHW. As there, the
-image-space math (pyramids, warp payload, SSIM and L1) runs in the
-``dtype`` the caller passes, the compute dtype of the config; geometry,
-the automask's minimum with its noise, and the means stay float32.
+Counterpart of ``codeps_tpu/losses/photometric.py:31-244`` (the
+reference's SSIMLoss and ReconstructionLoss, with its semantic-mask
+variant), NCHW. As there, the image-space math (pyramids, warp payload,
+SSIM and L1) runs in the ``dtype`` the caller passes, the compute dtype
+of the config; geometry, the automask's minimum with its noise, and the
+means stay float32.
 
 The automask's identity tie-break noise (Monodepth2, 1e-5 normals) is
 drawn from a ``torch.Generator``, or taken from an injected ``noise``
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 
 from codeps_torch.geometry.camera import scale_intrinsics_to_size
 from codeps_torch.geometry.warp import warp_image
-from codeps_torch.ops.resize import resize_bilinear_nchw
+from codeps_torch.ops.resize import resize_bilinear_nchw, resize_nearest_nchw
 
 _SSIM_C1 = 0.01 ** 2
 _SSIM_C2 = 0.03 ** 2
@@ -145,4 +146,47 @@ def reconstruction_loss(intrinsics: torch.Tensor,
             total = total + per_pixel.mean(dim=(1, 2)) / 2 ** s
         else:
             total = total + per_pixel.mean() / 2 ** s
+    return total / num_scales
+
+
+def _class_map(mask: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) or (B, 1, H, W) labels -> (B, 1, H, W) float32."""
+    mask = mask.to(torch.float32)
+    return mask[:, None] if mask.ndim == 3 else mask
+
+
+def reconstruction_loss_semantic(intrinsics: torch.Tensor,
+                                 semantic_masks: Sequence[torch.Tensor],
+                                 depth_map: torch.Tensor,
+                                 poses: Sequence[torch.Tensor],
+                                 num_scales: int = 5,
+                                 alpha: float = 0.85) -> torch.Tensor:
+    """The semantic-mask variant of the reconstruction loss, without the
+    automask (``photometric.py:203``; the reference's ``semantic_mask``
+    branch): per scale the class maps are resized by nearest, the
+    neighbours' warped with nearest sampling, and the photometric error
+    taken on the float class maps; scales weighted as in
+    ``reconstruction_loss``.
+
+    Args:
+      semantic_masks: [t, t-1, t+1] labels, each (B, H, W) or (B, 1, H, W).
+      depth_map: (B, 1, H, W) depth of frame t.
+      poses: [T(t->t-1), T(t->t+1)], each (B, 4, 4).
+    """
+    height, width = depth_map.shape[-2:]
+    target = _class_map(semantic_masks[0])
+    total = torch.zeros((), device=depth_map.device)
+    for s in range(num_scales):
+        size = (height // 2 ** s, width // 2 ** s)
+        intr_s = scale_intrinsics_to_size(intrinsics, (height, width), size)
+        target_s = resize_nearest_nchw(target, size)
+        depth_s = resize_bilinear_nchw(depth_map, size)
+        tstats = ssim_target_stats(target_s)
+        losses = []
+        for i, frame in enumerate(semantic_masks[1:]):
+            frame_s = resize_nearest_nchw(_class_map(frame), size)
+            pred = warp_image(intr_s, frame_s, depth_s, poses[i],
+                              interp_mode="nearest")
+            losses.append(photometric_error(pred, target_s, alpha, tstats))
+        total = total + torch.cat(losses, dim=1).mean() / 2 ** s
     return total / num_scales

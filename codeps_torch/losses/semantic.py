@@ -1,17 +1,19 @@
-"""Hard-pixel-mining cross entropy for the semantic head.
+"""Hard-pixel-mining cross entropy for the semantic head, and the warp
+consistency of semantic predictions.
 
-Counterpart of ``codeps_tpu/losses/semantic.py:24-128`` (the reference's
-SemanticLoss), NCHW. The reference's quirk is kept: the semantic head
-returns softmax probabilities and the CE applies ``log_softmax`` to them
-again.
+Counterpart of ``codeps_tpu/losses/semantic.py:24-193`` (the reference's
+SemanticLoss and SemanticConsistencyLoss), NCHW. The reference's quirk is
+kept: the semantic head returns softmax probabilities and the CE applies
+``log_softmax`` to them again.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
+from codeps_torch.geometry.warp import warp_image
 from codeps_torch.ops.topk import top_k_mean
 
 
@@ -88,3 +90,80 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
         flat = loss.reshape(-1)
         return top_k_mean(flat, int(top_k_percent_pixels * flat.shape[0]))
     return loss.to(torch.float32).mean()
+
+
+def semantic_consistency_loss(
+        intrinsics: torch.Tensor, preds_probs: Sequence[torch.Tensor],
+        images: Sequence[torch.Tensor], depth_map: torch.Tensor,
+        poses: Sequence[torch.Tensor],
+        object_motion_maps: Sequence[torch.Tensor] | None = None,
+        class_weights: Sequence[float] | None = None,
+        ignore_labels: Sequence[int] | None = None,
+        ignore_index: int = 255,
+        generator: torch.Generator | None = None,
+        noise: Callable[[tuple], torch.Tensor] | None = None
+) -> torch.Tensor:
+    """Warp-consistency CE between frame t's semantic prediction and the
+    neighbours' argmax labels warped into it (``semantic.py:130``; the
+    reference constructs it and never calls it, nor does any JAX path).
+
+    Per pixel the CE of t's probabilities against each warped neighbour
+    label, weighted by t's normalized confidence (max entropy minus
+    entropy, over max entropy) and by ``exp(-|I_t - warp(I_i)|)``, and
+    against each unwarped neighbour label (the identity), plus 1e-5
+    normals; the loss is the mean of the per-pixel minimum. Labels are
+    the argmax (ties to the lowest class) and warp by nearest sampling.
+
+    Args:
+      preds_probs: [t, t-1, t+1] softmax probabilities, each (B, C, H, W).
+      images: [t, t-1, t+1], each (B, 3, H, W).
+      depth_map: (B, 1, H, W) depth of frame t.
+      poses: [T(t->t-1), T(t->t+1)], each (B, 4, 4).
+      object_motion_maps: optional pair of (B, 3, H, W) scene-flow maps.
+      generator: source of the identity noise when ``noise`` is None.
+      noise: callable ``shape -> tensor`` giving the (B, 2, H, W) identity
+        noise, in place of the generator.
+    """
+    sem_preds = [p.argmax(dim=1) for p in preds_probs]
+    target_probs = preds_probs[0]
+    entropy = -torch.sum(target_probs * torch.log(target_probs + 1e-10),
+                         dim=1)
+    pixel_weights = (entropy.max() - entropy) / entropy.max()
+
+    def per_pixel(labels, photometric=None):
+        pred, cw_list = target_probs, class_weights
+        if ignore_labels:
+            pred, labels, cw_list = _apply_ignore_labels(
+                pred, labels, cw_list, ignore_labels, ignore_index)
+        weights = None
+        if cw_list is not None:
+            weights = torch.tensor(list(cw_list), dtype=pred.dtype,
+                                   device=pred.device)
+        loss = cross_entropy_per_pixel(pred, labels, weights, ignore_index)
+        loss = loss * pixel_weights
+        if photometric is not None:
+            loss = loss * photometric
+        return loss[:, None]
+
+    recon = []
+    for i, (labels, image) in enumerate(zip(sem_preds[1:], images[1:])):
+        motion = None if object_motion_maps is None \
+            else object_motion_maps[i]
+        warped = warp_image(intrinsics, labels[:, None].to(torch.float32),
+                            depth_map, poses[i], interp_mode="nearest",
+                            object_motion=motion)
+        warped_rgb = warp_image(intrinsics, image, depth_map, poses[i],
+                                object_motion=motion)
+        recon.append(per_pixel(
+            warped[:, 0].to(torch.int64),
+            torch.exp(-torch.mean(torch.abs(images[0] - warped_rgb),
+                                  dim=1))))
+    identity = torch.cat([per_pixel(labels) for labels in sem_preds[1:]],
+                         dim=1)
+    if noise is not None:
+        draw = noise(tuple(identity.shape)).to(identity.device)
+    else:
+        draw = torch.randn(identity.shape, generator=generator,
+                           device=identity.device)
+    identity = identity + draw * 1e-5
+    return torch.amin(torch.cat(recon + [identity], dim=1), dim=1).mean()

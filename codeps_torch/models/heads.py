@@ -1,7 +1,7 @@
-"""Task heads (NCHW): depth, pose, semantic, instance.
+"""Task heads (NCHW): depth, pose, scene flow, semantic, instance.
 
-Counterpart of ``codeps_tpu/models/heads.py:148-454`` (the flow head is
-not ported yet). Where the JAX package evaluates a layer through a TPU
+Counterpart of ``codeps_tpu/models/heads.py:148-454``. Where the JAX
+package evaluates a layer through a TPU
 rewrite (block-phase convs, commuted upsampling), this is the plain form
 that rewrite was proven equal to; the adaptation step trains through
 these plain forms too:
@@ -15,7 +15,9 @@ these plain forms too:
     stages (i = 3..0) to full resolution, concatenates them, and runs one
     zero-padded 3x3 conv plus bias, then a float32 softmax;
   - the instance sub-heads apply their 1x1 conv before the last 2x
-    align-corners upsampling, as the JAX package does.
+    align-corners upsampling, as the JAX package does;
+  - the flow head pads every conv by reflection and upsamples bilinearly
+    with ``align_corners=True``, unlike the depth decoder.
 
 Each head runs its body in its ``compute_dtype`` (``models/precision.py``)
 and returns float32, as the JAX heads cast their full-resolution outputs;
@@ -23,8 +25,9 @@ the pose head builds its transform from float32 parameters.
 
 Parameter names follow the reference checkpoints (``upconvs_1.4.0.weight``,
 ``semconv_guda.weight``, ``net.3.bias`` of the pose head,
-``decoder.net.fuse_0.3.weight``, ``center_head.net.conv.bias``). The depth head keeps only
-``dispconvs.0``: the coarser disparities feed nothing.
+``decoder.net.fuse_0.3.weight``, ``center_head.net.conv.bias``,
+``translation_layer.0.weight`` of the flow head). The depth head keeps
+only ``dispconvs.0``: the coarser disparities feed nothing.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from codeps_torch.geometry.pose import transformation_from_parameters
@@ -43,9 +47,22 @@ from codeps_torch.ops.resize import (resize_bilinear_nchw,
 _DEC_CHANNELS = (16, 32, 64, 128, 256)
 
 
-def _conv_elu(in_ch: int, out_ch: int) -> nn.Sequential:
-    """Zero-padded 3x3 conv + ELU (the reference's ``upconvs_j.i``)."""
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 3, padding=1), nn.ELU())
+def _conv_elu(in_ch: int, out_ch: int, padding: int = 1) -> nn.Sequential:
+    """3x3 conv + ELU (the reference's ``upconvs_j.i``), zero-padded."""
+    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 3, padding=padding),
+                         nn.ELU())
+
+
+def _reflect_pad(x: torch.Tensor) -> torch.Tensor:
+    """1-pixel reflection padding of (B, C, H, W), as ``jnp.pad``'s
+    ``"reflect"``: an axis of length 1 (a small input's coarsest
+    features) repeats its one value, where torch's reflection refuses."""
+    height, width = x.shape[-2:]
+    if height > 1 and width > 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if width > 1 else "replicate")
+    return F.pad(x, (0, 0, 1, 1), mode="reflect" if height > 1
+                 else "replicate")
 
 
 def disp_to_depth(disp: torch.Tensor, min_depth: float = 0.1,
@@ -164,6 +181,51 @@ class PoseHead(ComputeDtype, nn.Module):
         out = 0.01 * x.float().mean(dim=(2, 3))
         return transformation_from_parameters(out[:, :3], out[:, 3:6],
                                               invert=invert_pose)
+
+
+class FlowHead(ComputeDtype, nn.Module):
+    """Object-motion (masked scene-flow) decoder on the pose net's
+    pyramid; returns (B, 3, H, W) float32 motion at the pair's input
+    resolution.
+
+    Counterpart of ``codeps_tpu/models/heads.py:234-275``: reflect-padded
+    3x3 convs + ELU, bilinear ``align_corners=True`` 2x upsampling, skips,
+    ``upconvs_1`` only at scales 1..4, the last conv + ELU to 3 channels
+    (``translation_layer``), scaled by 0.001. The auto-mask keeps a pixel
+    only where its motion norm is strictly greater than the mean norm
+    over the whole batch it is given, so the masks of two pairs depend on
+    whether they go through together.
+    """
+
+    def __init__(self, num_ch_enc: Sequence[int], auto_mask: bool = True):
+        super().__init__()
+        self.auto_mask = auto_mask
+        upconvs_0, upconvs_1 = [], {}
+        for i in range(5):
+            in_0 = num_ch_enc[-1] if i == 4 else _DEC_CHANNELS[i + 1]
+            upconvs_0.append(_conv_elu(in_0, _DEC_CHANNELS[i], padding=0))
+            if i > 0:
+                upconvs_1[str(i)] = _conv_elu(
+                    _DEC_CHANNELS[i] + num_ch_enc[i - 1], _DEC_CHANNELS[i],
+                    padding=0)
+        self.upconvs_0 = nn.ModuleList(upconvs_0)
+        self.upconvs_1 = nn.ModuleDict(upconvs_1)
+        self.translation_layer = _conv_elu(_DEC_CHANNELS[0], 3, padding=0)
+
+    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+        x = feats[-1]
+        with self.autocast(x):
+            for i in range(4, -1, -1):
+                x = _upsample_2x_align(self.upconvs_0[i](_reflect_pad(x)))
+                if i > 0:
+                    x = torch.cat([x, feats[i - 1]], dim=1)
+                    x = self.upconvs_1[str(i)](_reflect_pad(x))
+            x = self.translation_layer(_reflect_pad(x))
+        flow = 0.001 * x.float()
+        if self.auto_mask:
+            norm = torch.sqrt((flow * flow).sum(dim=1, keepdim=True))
+            flow = flow * (norm > norm.mean()).to(flow.dtype)
+        return flow
 
 
 def _depthwise_separable(in_ch: int, out_ch: int) -> nn.Sequential:

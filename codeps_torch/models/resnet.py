@@ -7,7 +7,8 @@ variants), eps 1e-5. conv1 is the plain 7x7/stride 2 (the JAX package's
 space-to-depth fold is a TPU rewrite of the same conv) over
 ``num_input_images * num_channels_input`` channels: 3 for the depth
 encoder, 6 for the pose encoder, which takes two frames stacked on the
-channel axis. Parameter names follow the reference checkpoints:
+channel axis (8 with the flow head: RGB-D frames). Parameter names
+follow the reference checkpoints:
 ``encoder.conv1.weight``, ``encoder.layer3.22.conv2.weight``,
 ``encoder.layer1.0.downsample.1.running_mean``.
 

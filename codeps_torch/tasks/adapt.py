@@ -1,12 +1,14 @@
 """The online-adaptation step: teacher eval, multi-domain losses, Adam,
 EMA blend and the non-moving-frame skip.
 
-Counterpart of ``codeps_tpu/tasks/adapt.py:53-919`` without a flow head.
-One call of the step does, for one streamed frame:
+Counterpart of ``codeps_tpu/tasks/adapt.py:53-919``. One call of the
+step does, for one streamed frame:
 
   1. the multi-domain forward with autograd through the live modules
-     only: depth and pose losses on the source triplets and on the target
-     triplet batched with target replay, the top-k CE on source replay and
+     only: depth and pose losses (and with a flow head the flow
+     smoothness and sparsity) on the source triplets and on the target
+     triplet, batched with target replay when there is no flow head, the
+     top-k CE on source replay and
      on each mixup strategy group, and the frozen instance head's source
      losses; with ``fused_mixup`` the mixup samples are composed here
      from their raw materials (teacher pseudo-labels, the camera warp,
@@ -47,14 +49,16 @@ from codeps_torch.evaluation.depth_metrics import (
 from codeps_torch.evaluation.semantic_metrics import compute_confusion_matrix
 from codeps_torch.losses import (binary_mask_loss, center_loss,
                                  edge_aware_smoothness_loss,
-                                 ema_consistency_loss, offset_loss,
+                                 ema_consistency_loss, flow_smoothness_loss,
+                                 flow_sparsity_loss, offset_loss,
                                  reconstruction_loss, semantic_loss)
 from codeps_torch.models.codeps_net import MODULE_NAMES
 from codeps_torch.models.precision import compute_dtype
 from codeps_torch.ops.grid_sample import grid_sample_pair_pre
 from codeps_torch.ops.normalize import maybe_normalize
 from codeps_torch.ops.panoptic import panoptic_fusion_batch
-from codeps_torch.tasks.forward import apply_encoder, depth_forward
+from codeps_torch.tasks.forward import (apply_encoder, depth_forward,
+                                        encode_frames)
 from codeps_torch.tasks.optim import set_learning_rate
 from codeps_torch.tasks.state import DIST_BUFFER_LEN, AdaptState
 
@@ -342,7 +346,10 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     image_features, eval_results, eval_stats)``. ``noise`` replaces the
     state's generator as the source of the automask noise
     (``losses/photometric.py``): a callable ``shape -> tensor`` asked for
-    the source domain's scales, then the target domain's.
+    the source domain's scales, then the target domain's (target and
+    replay merged; with a flow head the target's, then the replay's).
+    With a flow head the eval results also hold ``object_motion_map``,
+    the student's target motion pair (2, B, H, W, 3).
 
     ``mixup_groups`` = ((strategy, count), ...) partitions the mixup
     samples; each group gets ONE pooled top-k CE with unit pixel weights,
@@ -394,21 +401,33 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                              top_k_percent_pixels=top_k, dtype=loss_dtype)
 
     def depth_domain(student, images, camera, noise, per_sample=False):
-        """Depth losses of one domain: (recon, smth, transformations,
-        frame-t encoder pyramid, frame-t depth)."""
-        feats_t = student.backbone_po_depth(images[0])
-        fwd = depth_forward(student, images, feats_t)
-        recon = reconstruction_loss(camera, images, fwd["depth"],
-                                    fwd["transformations"],
-                                    num_scales=num_scales,
-                                    per_sample=per_sample, noise=noise,
-                                    dtype=loss_dtype)
-        smth = edge_aware_smoothness_loss(images[0], fwd["disparity"],
-                                          per_sample=per_sample)
-        return recon, smth, fwd["transformations"], feats_t, fwd["depth"]
+        """Depth losses of one domain: a dict of recon, smth, flow (the
+        flow smoothness and sparsity, or None without a flow head),
+        transformations, feats (the frame-t encoder pyramid), depth (of
+        frame t) and motion (the object-motion pair, or None)."""
+        if student.flow_head is not None:
+            feats_t, *feats_nb = encode_frames(student.backbone_po_depth,
+                                               images)
+        else:
+            feats_t = student.backbone_po_depth(images[0])
+            feats_nb = None
+        fwd = depth_forward(student, images, feats_t, feats_nb)
+        motion = fwd["object_motion_maps"]
+        return {
+            "recon": reconstruction_loss(
+                camera, images, fwd["depth"], fwd["transformations"],
+                motion, num_scales=num_scales, per_sample=per_sample,
+                noise=noise, dtype=loss_dtype),
+            "smth": edge_aware_smoothness_loss(images[0], fwd["disparity"],
+                                               per_sample=per_sample),
+            "flow": None if motion is None else (
+                flow_smoothness_loss(motion), flow_sparsity_loss(motion)),
+            "transformations": fwd["transformations"], "feats": feats_t,
+            "depth": fwd["depth"], "motion": motion}
 
     def loss_fn(state: AdaptState, batch, noise, reuse_feats, reuse_depth):
         student = state.student
+        use_flow = student.flow_head is not None
         losses: Dict[str, torch.Tensor] = {}
         aux: Dict[str, Any] = {}
         source = batch["source"]
@@ -420,13 +439,22 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         source_feats = None
         if student.depth_head is not None:
             # ---- depth over domains (algos/depth.py:507-595)
-            recon_s, smth_s, _, source_feats, _ = depth_domain(
-                student, source_images, source["camera"], noise)
-            domain_stats = [(recon_s, smth_s, float(num_source))]
+            source_dom = depth_domain(student, source_images,
+                                      source["camera"], noise)
+            # The frame-t pyramid of the source triplets serves the
+            # panoptic losses too, unless it came out of the flow path's
+            # 3B pass through a train-mode encoder: the JAX package's
+            # separate pass over frame t has its own batch statistics.
+            if not (use_flow and student.backbone_po_depth.training):
+                source_feats = source_dom["feats"]
+            domains = [(source_dom, float(num_source))]
 
             target = batch["target"]
             nt = target["frames"].shape[0]
-            merge_tr = (has_replay and target["frames"].shape[2:]
+            # With a flow head, target and replay take separate passes
+            # (adapt.py:514): separate pose-net batches and auto-mask means.
+            merge_tr = (has_replay and not use_flow
+                        and target["frames"].shape[2:]
                         == batch["target_replay"]["frames"].shape[2:])
             if merge_tr:
                 # Target and target replay: ONE batch through the pose
@@ -436,19 +464,27 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                                     batch["target_replay"]["frames"]])
                 camera = torch.cat([target["camera"],
                                     batch["target_replay"]["camera"]])
-                recon_v, smth_v, transforms_tr, feats_tr, depth_tr = \
-                    depth_domain(student, _triplets(frames, mean, std),
-                                 camera, noise, per_sample=True)
-                recon_t, smth_t = recon_v[:nt].mean(), smth_v[:nt].mean()
-                recon_r, smth_r = recon_v[nt:].mean(), smth_v[nt:].mean()
-                transforms_t = [t[:nt] for t in transforms_tr]
-                target_feats = [f[:nt] for f in feats_tr]
-                target_depth = depth_tr[:nt]
+                merged = depth_domain(student, _triplets(frames, mean, std),
+                                      camera, noise, per_sample=True)
+                target_dom = {key: merged[key][:nt].mean()
+                              for key in ("recon", "smth")}
+                replay_dom = {key: merged[key][nt:].mean()
+                              for key in ("recon", "smth")}
+                transforms_t = [t[:nt] for t in merged["transformations"]]
+                target_feats = [f[:nt] for f in merged["feats"]]
+                target_depth = merged["depth"][:nt]
             else:
-                recon_t, smth_t, transforms_t, target_feats, target_depth = \
-                    depth_domain(student,
-                                 _triplets(target["frames"], mean, std),
-                                 target["camera"], noise)
+                target_dom = depth_domain(
+                    student, _triplets(target["frames"], mean, std),
+                    target["camera"], noise)
+                transforms_t = target_dom["transformations"]
+                target_feats = target_dom["feats"]
+                target_depth = target_dom["depth"]
+                if use_flow:
+                    # the student's target motion pair, for the motion
+                    # panel (adapt.py:555-560)
+                    aux["object_motion_map"] = torch.stack(
+                        [_nhwc(m) for m in target_dom["motion"]]).detach()
             # Non-moving-frame check on this forward's poses: a skipped
             # target counts 0 images in the weighted average.
             dist = (torch.linalg.vector_norm(transforms_t[0][0, :3, 3])
@@ -457,22 +493,27 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             skip = skip_decision(state.dist_buffer, state.dist_count, dist)
             aux["dist"] = dist
             aux["target_skipped"] = skip
-            t_count = torch.where(skip, 0.0, float(nt))
-            domain_stats.append((recon_t, smth_t, t_count))
+            domains.append((target_dom,
+                            torch.where(skip, 0.0, float(nt))))
             if has_replay:
                 if not merge_tr:
                     replay = batch["target_replay"]
-                    recon_r, smth_r, *_ = depth_domain(
+                    replay_dom = depth_domain(
                         student, _triplets(replay["frames"], mean, std),
                         replay["camera"], noise)
-                domain_stats.append(
-                    (recon_r, smth_r,
+                domains.append(
+                    (replay_dom,
                      float(batch["target_replay"]["frames"].shape[0])))
-            total_images = sum(c for *_, c in domain_stats)
+            total_images = sum(c for _, c in domains)
             losses["depth_recon"] = sum(
-                r * c for r, _, c in domain_stats) / total_images
+                d["recon"] * c for d, c in domains) / total_images
             losses["depth_smth"] = sum(
-                s * c for _, s, c in domain_stats) / total_images
+                d["smth"] * c for d, c in domains) / total_images
+            if use_flow:
+                losses["flow_smth"] = sum(
+                    d["flow"][0] * c for d, c in domains) / total_images
+                losses["flow_sparsity"] = sum(
+                    d["flow"][1] * c for d, c in domains) / total_images
         else:
             target_feats = apply_encoder(student.backbone_po_depth,
                                          maybe_normalize(
@@ -485,8 +526,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             if reuse_depth and target_depth is not None:
                 aux["eval_depth"] = target_depth.detach()
 
-        # ---- source supervised panoptic (the frame-t pyramid of the
-        # source triplets serves the depth and the panoptic losses)
+        # ---- source supervised panoptic
         if source_feats is None:
             source_feats = student.backbone_po_depth(source_images[0])
 
@@ -615,7 +655,11 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         metrics = {"loss_total": total.detach(), "target_skipped": skip,
                    **{k: v.detach() for k, v in losses.items()}}
         if eval_forward is not None:
-            return metrics, aux["image_features"], eval_out[0], eval_out[1]
+            results = eval_out[0]
+            if "object_motion_map" in aux:
+                # (2, B, H, W, 3), the pair [-flow(t-1, t), flow(t, t+1)]
+                results["object_motion_map"] = aux["object_motion_map"]
+            return metrics, aux["image_features"], results, eval_out[1]
         return metrics, aux["image_features"]
 
     return adapt_step

@@ -3,10 +3,13 @@ and Adam.
 
 Counterpart of ``codeps_tpu/tasks/train.py`` (the reference's train
 iteration, ``codeps/online_adap.py:76-139`` and
-``scripts/train_codeps.py:98-108``) without a flow head, on one card. As
-there, the depth encoder runs on frame t only (the reference also encodes
-t-1 and t+1 but consumes neither, ``train.py:14-18``); the pose pairs run
-as one 2B batch (``tasks/forward.depth_forward``).
+``scripts/train_codeps.py:98-108``), on one card. As there, without a
+flow head the depth encoder runs on frame t only (the reference also
+encodes t-1 and t+1 but consumes neither, ``train.py:14-18``); with one,
+the three frames go through it in one 3B pass
+(``tasks/forward.encode_frames``), whose batch statistics move the
+running ones; the pose pairs run as one 2B batch
+(``tasks/forward.depth_forward``).
 
 The GUDA semantic loss is computed on the head's plain full-resolution
 output, where the JAX package evaluates it in block-phase space: that
@@ -30,12 +33,14 @@ import torch
 from codeps_torch.evaluation.depth_metrics import compute_depth_metrics
 from codeps_torch.evaluation.semantic_metrics import compute_confusion_matrix
 from codeps_torch.losses import (binary_mask_loss, center_loss,
-                                 edge_aware_smoothness_loss, offset_loss,
-                                 reconstruction_loss, semantic_loss)
+                                 edge_aware_smoothness_loss,
+                                 flow_smoothness_loss, flow_sparsity_loss,
+                                 offset_loss, reconstruction_loss,
+                                 semantic_loss)
 from codeps_torch.models.precision import compute_dtype
 from codeps_torch.ops.normalize import maybe_normalize
 from codeps_torch.tasks.adapt import batch_to_device
-from codeps_torch.tasks.forward import depth_forward
+from codeps_torch.tasks.forward import depth_forward, encode_frames
 from codeps_torch.tasks.optim import set_learning_rate
 from codeps_torch.tasks.state import TrainState
 
@@ -78,16 +83,26 @@ def make_loss_fn(cfg, class_weights, sem_ignore_classes=None,
         else:
             images = [maybe_normalize(batch["image"], mean, std)
                       .permute(0, 3, 1, 2).contiguous()]
-        feats_t = modules.backbone_po_depth(images[0])
+        use_flow = modules.flow_head is not None
+        if use_flow:
+            feats_t, *feats_nb = encode_frames(modules.backbone_po_depth,
+                                               images)
+        else:
+            feats_t = modules.backbone_po_depth(images[0])
+            feats_nb = None
 
         if modules.depth_head is not None:
-            fwd = depth_forward(modules, images, feats_t)
+            fwd = depth_forward(modules, images, feats_t, feats_nb)
+            motion = fwd["object_motion_maps"]
             losses["depth_recon"] = reconstruction_loss(
                 batch["camera"], images, fwd["depth"],
-                fwd["transformations"], num_scales=num_scales, noise=noise,
-                dtype=loss_dtype)
+                fwd["transformations"], motion, num_scales=num_scales,
+                noise=noise, dtype=loss_dtype)
             losses["depth_smth"] = edge_aware_smoothness_loss(
                 images[0], fwd["disparity"])
+            if use_flow:
+                losses["flow_smth"] = flow_smoothness_loss(motion)
+                losses["flow_sparsity"] = flow_sparsity_loss(motion)
             preds["depth"] = _nhwc(fwd["depth"])
 
         if modules.semantic_head is not None:
