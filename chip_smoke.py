@@ -169,11 +169,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
     the frozen instance head's and the total, and for those through the
     mask if a pixel of the band flipped), the train step's BatchNorm
     statistics within 1e-5;
-13. the ``kernels`` line (with the per-n times and bounds, the times at
+13. data parallel: (a) DDP_RANKS processes (``torch.multiprocessing``)
+    share the card over gloo (NCCL refuses two ranks on one card), each
+    in one process group, through ``run_training`` at phase 9's config
+    (batch 6 a rank): DDP_STEPS steps, a checkpoint written by rank 0,
+    validation with losses of DDP_VAL_IMAGES images (a global batch of 4
+    as 2 rows a rank, and a tail of 1 evaluated whole on every rank, its
+    GT map on rank 0), then a step resumed from the checkpoint on every
+    rank (bit-equal state); the step metrics and the validation metrics
+    must be the same on every rank, the kernel equal to its plain
+    version on every call, 0 launches in the steps, 4 and 3 a validation
+    on ranks 0 and 1, no layout copy. Prints the slowest rank's step
+    time, global images/s, the gradient all-reduce's time a step (timed
+    on its own), each rank's peak memory and launches; (b) one step of
+    DDP_EXACT_ROWS rows a rank at 512x1024 against one process on all of
+    them from the same weights and generator state, in float64 and in
+    float32, held to ``ddp_bounds``; (c) NCCL as a world of one in this
+    process: NCCL_STEPS steps and a validation;
+14. the ``kernels`` line (with the per-n times and bounds, the times at
     the CLI's, pretraining's, the host mixup path's and the flow paths'
     shapes and the launches and layout copies on each path), the
     ``adapt_step``, ``adapt_stream``, ``adapt_cli``, ``train``,
-    ``host_mixup_stream`` and ``flow`` lines, then the last line
+    ``host_mixup_stream``, ``flow`` and ``ddp`` lines, then the last line
     ``{"ok": true, "device": {...}}``.
 
 The full-width runs compute in bfloat16, the package default
@@ -302,6 +319,35 @@ FLOW_STREAM_FRAMES = 6
 FLOW_TRAIN_STEPS = 5
 FLOW_REL_TOL = 1e-4
 TIE_BAND = 1e-4
+# phase 13, data-parallel pretraining: DDP_RANKS ranks share the card over
+# gloo, DDP_STEPS steps of batch TRAIN_BATCH a rank (the first TRAIN_WARMUP
+# not timed), validation of DDP_VAL_IMAGES at 2 a rank (a global batch of
+# 4 and a tail of 1), a resumed step; (b) DDP_EXACT_ROWS a rank against one
+# process on them all at full width, in float64 and in float32, held to
+# DDP_BOUNDS (``ddp_bounds``): losses (relative), BatchNorm running
+# statistics (max |diff| / (1 + max |value|)) and each module's gradient
+# (relative L2); (c) NCCL_STEPS steps over NCCL as a world of one.
+# float64 holds the data-parallel step to the one-process step's rounding.
+# In float32 the ranks' BatchNorm runs torch's SyncBN kernels and the one
+# process's cuDNN's, and 100 train-mode BatchNorm layers of ResNet-101 at
+# random weights amplify either's rounding far past the float32 bounds
+# below; so float32 holds the data-parallel step's distance from the
+# float64 step to the larger of those bounds and DDP_F32_FACTOR times the
+# one-process float32 step's own distance from it. Two such roundings
+# differ by chance: the 64x128 ResNet-18 CPU rehearsal gave a ratio of
+# 2.34 on the pose head (48 elements a channel in layer4), hence 4; a
+# fault of the data-parallel step (a scale, a missing reduction) moves
+# the gradients by O(1).
+DDP_RANKS = 2
+DDP_STEPS = 4
+DDP_VAL_IMAGES = 5
+DDP_EXACT_ROWS = 3
+DDP_BOUNDS = {"float32": {"loss_rel": 1e-4, "stat_err": 1e-5,
+                          "grad_rel_l2": 1e-3},
+              "float64": {"loss_rel": 1e-6, "stat_err": 1e-10,
+                          "grad_rel_l2": 1e-6}}
+DDP_F32_FACTOR = 4.0
+NCCL_STEPS = 3
 
 
 def phase(name):
@@ -1841,6 +1887,233 @@ def flow_card_vs_cpu(torch, device, rng):
     return out
 
 
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_exactness(torch, device):
+    """Phase 13 (b) on this rank: one train step of ``train_config`` at
+    full width on this rank's DDP_EXACT_ROWS rows of a seeded global
+    batch, with modules and frames in float64 and then in float32; after
+    each, rank 0 takes the one-process step on the whole batch
+    (``parallel.replicated``) from the same seeded weights and generator
+    state. Returns, by dtype, rank 0's distances (``step_distances``) of
+    the data-parallel step from the one-process step, in float32 also
+    both float32 steps' distances from the one-process float64 step, and
+    every rank's step metrics; and rank 0's peak memory in each step."""
+    import numpy as np
+    from codeps_torch import parallel
+    from codeps_torch.models import build_modules, init_params
+    from codeps_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
+    from codeps_torch.tasks.state import make_train_state
+    from codeps_torch.tasks.train import make_train_step
+    cfg = train_config((SOURCE_HEIGHT, SOURCE_WIDTH))
+    cfg.tpu.compute_dtype = "float32"
+    rows = DDP_EXACT_ROWS * parallel.world_size()
+    batch = train_batch(np.random.default_rng(SEED), rows, SOURCE_HEIGHT,
+                        SOURCE_WIDTH)
+    # float frames are taken as normalized: both dtypes see the same values
+    frames = (batch["frames"] / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+    modules = init_params(build_modules(cfg, NUM_CLASSES, device=device),
+                          seed=SEED, device=device)
+    step = make_train_step(cfg, list(cfg.semantics.class_weights))
+
+    peaks = []
+
+    def run(dtype, given):
+        torch.cuda.reset_peak_memory_stats()
+        mods = copy.deepcopy(modules).to(dtype)
+        state = make_train_state(mods, 1e-4, seed=SEED, device=device)
+        metrics = step(state, given)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+        grads = {name: torch.cat([p.grad.reshape(-1) for p in
+                                  getattr(mods, name).parameters()]).cpu()
+                 for name in mods.module_names()}
+        stats = {f"{name}.{key}": value.cpu()
+                 for name in mods.module_names()
+                 for key, value in getattr(mods, name).state_dict().items()
+                 if key.endswith(("running_mean", "running_var"))}
+        del mods, state
+        torch.cuda.empty_cache()
+        return ({k: float(v) for k, v in metrics.items() if v.ndim == 0},
+                grads, stats)
+
+    out, truth = {}, None
+    for name, dtype in (("float64", torch.float64),
+                        ("float32", torch.float32)):
+        given = dict(batch, frames=frames.astype(str(dtype)[6:]))
+        ours = run(dtype, {k: v[parallel.shard_rows(rows)]
+                           for k, v in given.items()})
+        part = {"metrics": ours[0]}
+        if parallel.rank() == 0:
+            with parallel.replicated():
+                ref = run(dtype, given)
+            part.update(step_distances(torch, ours, ref),
+                        peak_mib={"data_parallel": peaks[-2],
+                                  "one_process": peaks[-1]})
+            if truth is None:
+                truth = ref
+            else:
+                part["to_float64"] = {
+                    "data_parallel": step_distances(torch, ours, truth),
+                    "one_process": step_distances(torch, ref, truth)}
+        out[name] = part
+        del ours
+        parallel.barrier()
+    del modules, truth
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_distances(torch, ours, ref):
+    """The distances of a train step's (scalars, gradients by module,
+    running statistics) from ``ref``'s, in float64: each loss relative,
+    the statistics as max |diff| / (1 + max |value|) over the tensors and
+    each module's gradient by relative L2."""
+    (scalars, grads, stats), (ref_scalars, ref_grads, ref_stats) = ours, ref
+    return {
+        "loss_rel": {k: abs(scalars[k] - v) / max(abs(v), 1e-30)
+                     for k, v in ref_scalars.items()},
+        "stat_err": max(float((stats[k].double() - v.double()).abs().max()
+                              / (1.0 + float(v.abs().max())))
+                        for k, v in ref_stats.items()),
+        "stat_tensors": len(ref_stats),
+        "grad_rel_l2": {
+            name: float(torch.linalg.vector_norm(grads[name].double()
+                                                 - g.double())
+                        / torch.linalg.vector_norm(g.double()))
+            for name, g in ref_grads.items()}}
+
+
+def ddp_bounds(part):
+    """(b)'s (quantity, key, distance, bound) for one dtype's ``part``.
+    float64: the data-parallel step against the one-process step, to
+    DDP_BOUNDS. float32: the data-parallel step's distance from the
+    one-process float64 step, each to the larger of DDP_BOUNDS and
+    DDP_F32_FACTOR times the one-process float32 step's
+    own distance from it (that float32 rounding, amplified by train-mode
+    BatchNorm, is the floor of any float32 comparison)."""
+    if "to_float64" not in part:
+        return [(q, key, err, DDP_BOUNDS["float64"][q])
+                for q, key, err in _distance_items(part)]
+    own = {(q, key): err for q, key, err in
+           _distance_items(part["to_float64"]["one_process"])}
+    return [(q, key, err, max(DDP_BOUNDS["float32"][q],
+                              DDP_F32_FACTOR * own[q, key]))
+            for q, key, err in
+            _distance_items(part["to_float64"]["data_parallel"])]
+
+
+def _distance_items(distances):
+    return ([("loss_rel", k, v) for k, v in distances["loss_rel"].items()]
+            + [("stat_err", "all", distances["stat_err"])]
+            + [("grad_rel_l2", k, v)
+               for k, v in distances["grad_rel_l2"].items()])
+
+
+def ddp_smoke_rank(rank, world, port, out_dir):
+    """One rank of phase 13 (a) and (b), started by
+    ``torch.multiprocessing.spawn``: every rank on the explicit card
+    ``cuda:0``, which ``parallel.default_backend`` puts on gloo (NCCL
+    refuses two ranks on one card). Writes the numbers of
+    ``_ddp_smoke_parts`` to ``out_dir/rank<rank>.json``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+    from codeps_torch import parallel
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(out_dir)
+    device = torch.device("cuda", 0)
+    allreduce_s = []
+    average = parallel.average_gradients
+
+    def timed_average(parameters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        average(parameters)
+        torch.cuda.synchronize()
+        allreduce_s.append(time.perf_counter() - t0)
+
+    parallel.average_gradients = timed_average
+    # one process group for the whole run: a group made again on the same
+    # port could read the last group's addresses
+    with parallel.process_group(device):
+        numbers = _ddp_smoke_parts(torch, rank, world, device, out_dir,
+                                   allreduce_s)
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(numbers))
+
+
+def _ddp_smoke_parts(torch, rank, world, device, out_dir, allreduce_s):
+    """(a) ``run_training`` at full width through ``drive_training`` (the
+    grouping counts set to 0 before the steps and each validation, every
+    call checked against the plain version; ``allreduce_s`` gathers the
+    gradient all-reduce's times), then a resumed step from rank 0's
+    checkpoint; (b) ``ddp_exactness``."""
+    import numpy as np
+    from codeps_torch import parallel
+    from codeps_torch.io.checkpoint import load_checkpoint
+    cfg = train_config((SOURCE_HEIGHT, SOURCE_WIDTH))
+    datasets = train_datasets(cfg, DDP_STEPS * TRAIN_BATCH * world,
+                              DDP_VAL_IMAGES, SEED)
+    run_dir = out_dir / "run"
+    result, parts = drive_training(torch, cfg, datasets, device,
+                                   max_steps=DDP_STEPS, run_dir=str(run_dir))
+    steps_allreduce = list(allreduce_s)
+    ckpt = Path(result["checkpoints"][0])
+    saved = load_checkpoint(str(ckpt))
+    resumed_checks = {}
+
+    def check_resumed(state):
+        tensors = 0
+        for name in state.modules.module_names():
+            for key, value in getattr(state.modules,
+                                      name).state_dict().items():
+                assert torch.equal(value.cpu(),
+                                   saved["state_dict"][name][key]), \
+                    f"rank {rank}: resumed {name}.{key} != saved"
+                tensors += 1
+        assert torch.equal(state.generator.get_state(),
+                           saved["state_dict"]["rng"])
+        assert state.step == DDP_STEPS, state.step
+        resumed_checks.update(tensors=tensors, world=parallel.world_size(),
+                              backend=torch.distributed.get_backend())
+
+    resumed, resumed_parts = drive_training(
+        torch, cfg, datasets, device, max_steps=DDP_STEPS + 1,
+        checkpoint=str(ckpt), check_resumed=check_resumed)
+    del saved, datasets
+    torch.cuda.empty_cache()
+    exact = ddp_exactness(torch, device)
+    return {
+        "rank": rank, "step_s": result["step_times"],
+        "starts": parts["steps"]["starts"],
+        "allreduce_s": steps_allreduce, "peak_mib": parts["peak"] / 2**20,
+        "metrics": result["metrics"], "val": [
+            {k: float(v) for k, v in m.items() if np.ndim(v) == 0}
+            for m in result["val"]],
+        "sem_conf": [m["sem_conf"].tolist() for m in result["val"]],
+        "launches": parts["steps"]["launches"],
+        "copies": parts["steps"]["copies"],
+        "val_launches": [v["launches"] for v in parts["val"]
+                         + resumed_parts["val"]],
+        "val_copies": [v["copies"] for v in parts["val"]
+                       + resumed_parts["val"]],
+        "val_batch_s": parts["val"][0]["batch_s"],
+        "calls": len(parts["centers"]) + len(resumed_parts["centers"]),
+        "shapes": parts["shapes"],
+        "max_abs_err": max(parts["max_abs_err"],
+                           resumed_parts["max_abs_err"]),
+        "checkpoint": ckpt.name, "resumed": resumed_checks,
+        "resumed_metrics": resumed["metrics"],
+        "global_step": resumed["global_step"], "exact": exact}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2977,7 +3250,197 @@ def main() -> int:
         "p_pq": flow_values["p_pq"], "d_abs_rel": flow_values["d_abs_rel"]}
     print(f"phase 12: {time.perf_counter() - phase_start:.3f} s")
 
-    phase("13 result")
+    phase("13 data parallel")
+    phase_start = time.perf_counter()
+    import torch.multiprocessing as torch_mp
+    import torch.distributed as torch_dist
+    # (a) and (b): DDP_RANKS processes on this one card over gloo
+    ddp_dir = Path(__file__).resolve().parent / "chiprun_out" / "ddp_smoke"
+    torch.cuda.empty_cache()
+    try:
+        torch_mp.spawn(ddp_smoke_rank, args=(DDP_RANKS, free_port(),
+                                             str(ddp_dir)),
+                       nprocs=DDP_RANKS, join=True)
+        ranks = [json.loads((ddp_dir / f"rank{r}.json").read_text())
+                 for r in range(DDP_RANKS)]
+    finally:
+        for path in sorted(ddp_dir.rglob("*"), reverse=True):
+            path.unlink() if path.is_file() else path.rmdir()
+        if ddp_dir.exists():
+            ddp_dir.rmdir()
+    ddp_batch = TRAIN_BATCH * DDP_RANKS
+    for r, numbers in enumerate(ranks):
+        assert len(numbers["metrics"]) == DDP_STEPS
+        assert numbers["global_step"] == DDP_STEPS + 1
+        for metrics in numbers["metrics"] + numbers["resumed_metrics"]:
+            bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+            assert not bad, f"rank {r}: train metrics not finite: {bad}"
+        # the step metrics are the global batch's: the same on every rank
+        assert numbers["metrics"] == ranks[0]["metrics"], r
+        assert numbers["val"] == ranks[0]["val"], r
+        assert numbers["sem_conf"] == ranks[0]["sem_conf"], r
+        assert numbers["resumed"]["world"] == DDP_RANKS
+        assert numbers["resumed"]["backend"] == "gloo"
+        assert numbers["launches"] == numbers["copies"] == 0, numbers
+        # the global batch of 4 gives each rank 2 rows (prediction and GT
+        # map); the tail of 1 is evaluated whole on every rank, its GT map
+        # on rank 0 alone, which counts it
+        expect = 4 if r == 0 else 3
+        assert numbers["val_launches"] == [expect, expect], numbers
+        assert numbers["val_copies"] == [0, 0], numbers
+        assert numbers["shapes"] == [[1, SOURCE_HEIGHT, SOURCE_WIDTH],
+                                     [2, SOURCE_HEIGHT, SOURCE_WIDTH]], \
+            numbers["shapes"]
+        assert numbers["max_abs_err"] == 0
+    # a step ends when every rank's scalars are on its host
+    step_s = [max(numbers["step_s"][i] for numbers in ranks)
+              for i in range(DDP_STEPS)][TRAIN_WARMUP:]
+    ddp_step_ms = statistics.median(step_s) * 1e3
+    exact = ranks[0]["exact"]
+    ddp_numbers = {
+        "card": smi, "ranks": DDP_RANKS, "backend": "gloo",
+        "shared_card": True, "config": "cfg/train_cityscapes.yaml",
+        "batch_per_rank": TRAIN_BATCH, "global_batch": ddp_batch,
+        "size": [SOURCE_HEIGHT, SOURCE_WIDTH],
+        "compute_dtype": "bfloat16",
+        "step_ms": ddp_step_ms,
+        "images_per_s": ddp_batch / ddp_step_ms * 1e3,
+        "all_step_ms": [[t * 1e3 for t in n["step_s"]] for n in ranks],
+        "loop_ms": [statistics.median(np.diff(
+            n["starts"][TRAIN_WARMUP:])) * 1e3 for n in ranks],
+        "allreduce_ms": [statistics.median(n["allreduce_s"][TRAIN_WARMUP:])
+                         * 1e3 for n in ranks],
+        "all_allreduce_ms": [[t * 1e3 for t in n["allreduce_s"]]
+                             for n in ranks],
+        "peak_mib": [n["peak_mib"] for n in ranks],
+        "launches": {f"rank{n['rank']}": {
+            "steps": n["launches"], "val": n["val_launches"],
+            "copies": n["copies"], "val_copies": n["val_copies"]}
+            for n in ranks},
+        "kernel_equals_plain_calls": [n["calls"] for n in ranks],
+        "val_batch_ms": [[t * 1e3 for t in n["val_batch_s"]]
+                         for n in ranks],
+        "val_metrics": ranks[0]["val"][0],
+        "exactness": {"rows_per_rank": DDP_EXACT_ROWS,
+                      "size": [SOURCE_HEIGHT, SOURCE_WIDTH],
+                      "bounds": DDP_BOUNDS, "f32_factor": DDP_F32_FACTOR,
+                      **{name: {k: v for k, v in part.items()
+                                if k != "metrics"}
+                         for name, part in exact.items()},
+                      "held": {name: ddp_bounds(part)
+                               for name, part in exact.items()}}}
+    print(f"data parallel (a), {DDP_RANKS} ranks sharing one card over "
+          f"gloo ({smi}), cfg/train_cityscapes.yaml's values, batch "
+          f"{TRAIN_BATCH} a rank ({ddp_batch} global) at {SOURCE_HEIGHT}x"
+          f"{SOURCE_WIDTH}, bfloat16: step (host clock, slowest rank, median "
+          f"of {len(step_s)} after {TRAIN_WARMUP} warm-up) {ddp_step_ms:.3f} "
+          f"ms, {ddp_numbers['images_per_s']:.3f} global images/s (two "
+          f"ranks on one card are no faster than one: multi-card throughput "
+          f"waits for a 4-chip cell); gradient all-reduce "
+          f"{[round(t, 3) for t in ddp_numbers['allreduce_ms']]} ms a step "
+          f"by rank; peak memory "
+          f"{[round(m, 1) for m in ddp_numbers['peak_mib']]} MiB by rank")
+    print(f"data parallel (a): grouping launches by rank "
+          f"{ddp_numbers['launches']}; kernel == plain on all "
+          f"{ddp_numbers['kernel_equals_plain_calls']} calls by rank; "
+          f"resumed from {ranks[0]['checkpoint']} on every rank "
+          f"({ranks[0]['resumed']['tensors']} tensors and the generator "
+          f"bit-equal); validation " + ", ".join(
+              f"{k} {v:.6g}" for k, v in ddp_numbers["val_metrics"].items()))
+    def distances_text(d):
+        return (f"losses rel {max(d['loss_rel'].values()):.3g}; BatchNorm "
+                f"running statistics {d['stat_err']:.3g} over "
+                f"{d['stat_tensors']} tensors; gradients by relative L2 "
+                + ", ".join(f"{k} {v:.3g}"
+                            for k, v in d["grad_rel_l2"].items()))
+
+    for name, part in exact.items():
+        print(f"data parallel (b), {name} at {SOURCE_HEIGHT}x{SOURCE_WIDTH},"
+              f" {DDP_RANKS} x {DDP_EXACT_ROWS} rows against one process on "
+              f"{DDP_RANKS * DDP_EXACT_ROWS}: {distances_text(part)}; peak "
+              f"memory of rank 0 {part['peak_mib']} MiB")
+        for who, d in part.get("to_float64", {}).items():
+            print(f"data parallel (b), {name}, the {who} step against the "
+                  f"one-process float64 step: {distances_text(d)}")
+        q, key, err, bound = max(ddp_bounds(part),
+                                 key=lambda held: held[2] / held[3])
+        print(f"data parallel (b), {name}: nearest its bound {q} {key} "
+              f"{err:.3g} of {bound:.3g}")
+
+    # (c) NCCL as a world of one, in this process
+    import os
+    nccl_env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                    MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    os.environ.update(nccl_env)
+    nccl_seen = {}
+
+    def record_group(state):
+        nccl_seen.update(backend=torch_dist.get_backend(),
+                         world=torch_dist.get_world_size(),
+                         device=str(state.device))
+
+    try:
+        from codeps_torch import parallel
+        with parallel.process_group("cuda") as nccl_device:
+            nccl_cfg = train_config((SOURCE_HEIGHT, SOURCE_WIDTH))
+            nccl_data = train_datasets(nccl_cfg, NCCL_STEPS * TRAIN_BATCH,
+                                       TRAIN_VAL_IMAGES, SEED)
+            nccl_result, nccl_parts = drive_training(
+                torch, nccl_cfg, nccl_data, nccl_device,
+                max_steps=NCCL_STEPS,
+                check_resumed=record_group)
+    finally:
+        for key in nccl_env:
+            os.environ.pop(key, None)
+    assert nccl_seen == {"backend": "nccl", "world": 1,
+                         "device": "cuda:0"}, nccl_seen
+    assert not torch_dist.is_initialized()
+    assert len(nccl_result["metrics"]) == NCCL_STEPS
+    for metrics in nccl_result["metrics"]:
+        assert all(math.isfinite(v) for v in metrics.values()), metrics
+    nccl_val = nccl_parts["val"][0]
+    assert nccl_parts["steps"]["launches"] == 0
+    assert nccl_val["launches"] == 2 * (TRAIN_VAL_IMAGES
+                                        // nccl_cfg.val.batch_size_per_gpu)
+    assert nccl_val["copies"] == 0
+    ddp_numbers["nccl"] = {
+        "backend": "nccl", "world": 1,
+        "step_ms": [t * 1e3 for t in nccl_result["step_times"]],
+        "val_batch_ms": [t * 1e3 for t in nccl_val["batch_s"]],
+        "launches": {"steps": nccl_parts["steps"]["launches"],
+                     "val": nccl_val["launches"]},
+        "copies": nccl_val["copies"],
+        "val_metrics": {k: float(v) for k, v in nccl_result["val"][0].items()
+                        if np.ndim(v) == 0}}
+    print(f"data parallel (c), NCCL as a world of one on {nccl_seen['device']}"
+          f": {NCCL_STEPS} steps "
+          f"{[round(t, 3) for t in ddp_numbers['nccl']['step_ms']]} ms, "
+          f"validation {nccl_val['launches']} launches in "
+          f"{len(nccl_val['batch_s'])} batches, 0 copies, kernel == plain "
+          f"on all {len(nccl_parts['centers'])} calls; p_pq "
+          f"{ddp_numbers['nccl']['val_metrics']['p_pq']:.6g}")
+    ddp_launches = {
+        "ddp_train": sum(n["launches"] for n in ranks)
+        + nccl_parts["steps"]["launches"],
+        "ddp_val": sum(sum(n["val_launches"]) for n in ranks)
+        + nccl_val["launches"]}
+    ddp_copies = {
+        "ddp_train": sum(n["copies"] for n in ranks)
+        + nccl_parts["steps"]["copies"],
+        "ddp_val": sum(sum(n["val_copies"]) for n in ranks)
+        + nccl_val["copies"]}
+    ddp_err = max(max(n["max_abs_err"] for n in ranks),
+                  nccl_parts["max_abs_err"])
+    del nccl_result, nccl_parts, nccl_data
+    # (b)'s bounds, held after (c) has run
+    for name, part in exact.items():
+        for q, key, err, bound in ddp_bounds(part):
+            assert err <= bound, (name, q, key, err, bound)
+        assert all(n["exact"][name]["metrics"] == part["metrics"]
+                   for n in ranks)
+    print(f"phase 13: {time.perf_counter() - phase_start:.3f} s")
+
+    phase("14 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
@@ -2985,22 +3448,23 @@ def main() -> int:
         "launches": (launches + adapt_launches + stream_launches
                      + sum(cli_launches.values())
                      + sum(train_launches.values()) + host_launches
-                     + sum(flow_launches.values())),
+                     + sum(flow_launches.values())
+                     + sum(ddp_launches.values())),
         "launches_by_path": {"serve": launches, "adapt": adapt_launches,
                              "stream": stream_launches,
                              **{f"cli_{k}": v
                                 for k, v in cli_launches.items()},
                              **train_launches, "host_mixup": host_launches,
-                             **flow_launches},
+                             **flow_launches, **ddp_launches},
         "copies_by_path": {"serve": copies, "adapt": adapt_copies,
                            "stream": stream_copies,
                            **{f"cli_{k}": v
                               for k, v in cli_copies.items()},
                            **train_copies, "host_mixup": host_copies,
-                           **flow_copies},
+                           **flow_copies, **ddp_copies},
         "exact": True,
         "max_abs_err": max(max_err, stream_err, cli_err, train_err,
-                           host_err, flow_err),
+                           host_err, flow_err, ddp_err),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
@@ -3037,6 +3501,7 @@ def main() -> int:
                                 "depth_only": depth_numbers}}))
     print(json.dumps({"host_mixup_stream": host_mixup}))
     print(json.dumps({"flow": flow_numbers}))
+    print(json.dumps({"ddp": ddp_numbers}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

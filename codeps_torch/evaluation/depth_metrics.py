@@ -5,7 +5,9 @@ reference's DepthEvaluator): void GT (0) masked out, optional GT-median
 scaling, clamping to the evaluation range, then abs_rel, sq_rel, rmse,
 rmse_log and a1-a3 averaged over the frames that have GT. Medians are the
 lower middle value, as ``torch.median`` gives, taken from a sort of the
-masked values so that nothing waits for the device.
+masked values so that nothing waits for the device. Inside a process
+group (``parallel/dist.py``) the frames of every rank count: the sums and
+the count of frames with GT are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+
+from codeps_torch import parallel
 
 METRIC_KEYS = ("d_a1", "d_a2", "d_a3", "d_rmse", "d_rmse_log", "d_abs_rel",
                "d_sq_rel")
@@ -58,11 +62,13 @@ def compute_depth_metrics(depth_gt: torch.Tensor, depth_pred: torch.Tensor,
 
     stats = _depth_stats(gt, pred, masked_mean)
     valid_frame = mask.sum(dim=1) > 0
-    n_valid = valid_frame.sum().clamp(min=1)
-    return {f"d_{key}": torch.where(
-        valid_frame.any(),
-        torch.where(valid_frame, value, 0.0).sum() / n_valid,
-        torch.nan) for key, value in stats.items()}
+    sums = parallel.all_reduce(torch.stack(
+        [torch.where(valid_frame, value, 0.0).sum()
+         for value in stats.values()] + [valid_frame.sum()]))
+    n_valid = sums[-1]
+    means = sums[:-1] / n_valid.clamp(min=1)
+    return {f"d_{key}": torch.where(n_valid > 0, mean, torch.nan)
+            for key, mean in zip(stats, means)}
 
 
 def _depth_stats(gt, pred, masked_mean) -> Dict[str, torch.Tensor]:

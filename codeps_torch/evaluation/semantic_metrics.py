@@ -3,7 +3,9 @@
 Counterpart of ``codeps_tpu/evaluation/semantic_metrics.py`` (the
 reference's SemanticEvaluator). The confusion matrix is one bincount
 over ``gt * C + pred``, the form the reference itself uses; the JAX
-package's one-hot matmul is a TPU rewrite of the same count.
+package's one-hot matmul is a TPU rewrite of the same count. Inside a
+process group (``parallel/dist.py``) the matrix counts every rank's
+pixels.
 """
 
 from __future__ import annotations
@@ -13,12 +15,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from codeps_torch import parallel
+
 
 def compute_confusion_matrix(semantic_pred: torch.Tensor,
                              semantic_gt: torch.Tensor, num_classes: int,
                              ignore_classes: Sequence[int] = (),
                              ignore_index: int = 255) -> torch.Tensor:
-    """(num_classes, num_classes) int32 confusion matrix, rows = GT.
+    """(num_classes, num_classes) int32 confusion matrix, rows = GT, of
+    the global batch inside a process group.
     Pixels whose GT is ``ignore_index`` or in ``ignore_classes`` are
     dropped; predictions are clamped into [0, C)."""
     pred = semantic_pred.reshape(-1).long().clamp(0, num_classes - 1)
@@ -30,7 +35,8 @@ def compute_confusion_matrix(semantic_pred: torch.Tensor,
     key = torch.where(valid, target * num_classes + pred,
                       num_classes * num_classes)
     counts = torch.bincount(key, minlength=num_classes * num_classes + 1)
-    return counts[:-1].reshape(num_classes, num_classes).to(torch.int32)
+    counts = parallel.all_reduce(counts[:-1])
+    return counts.reshape(num_classes, num_classes).to(torch.int32)
 
 
 def compute_sem_miou(conf_mat, num_classes: int,

@@ -39,6 +39,8 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from codeps_torch import parallel
+
 StateDicts = Dict[str, Dict[str, torch.Tensor]]
 
 
@@ -78,7 +80,8 @@ def save_checkpoint(path: str, cfg, modules, epoch: int = 0,
     has no YAML writer). ``state_dict`` also takes, when given, the
     optimizer's state dict (``"optimizer"``), the generator's state
     (``"rng"``) and the meters' state dicts (``"meters"``), where the JAX
-    package keeps them."""
+    package keeps them. Inside a process group (``parallel/dist.py``)
+    rank 0 writes and every rank waits until it has."""
     payload = {
         "config": json.dumps(cfg.to_dict(), indent=1, default=str),
         "state_dict": {
@@ -95,9 +98,11 @@ def save_checkpoint(path: str, cfg, modules, epoch: int = 0,
     if meters is not None:
         payload["state_dict"]["meters"] = {
             name: meter.state_dict() for name, meter in meters.items()}
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(payload, path)
+    if parallel.is_lead():
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(payload, path)
+    parallel.barrier()
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

@@ -17,11 +17,16 @@ import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from codeps_torch import parallel
+
 _LOGGER = _logging.getLogger("codeps_torch")
 
 
 def init_logging(log_dir: Optional[str] = None, debug: bool = False) -> None:
-    """Console handler, and a ``run.log`` file handler under ``log_dir``."""
+    """Console handler, and a ``run.log`` file handler under ``log_dir``
+    on rank 0 of a process group (``parallel/dist.py``): the other ranks
+    log to the console only, as one file shared by processes would
+    interleave their lines."""
     _LOGGER.setLevel(_logging.DEBUG if debug else _logging.INFO)
     _LOGGER.propagate = False  # no second line through the root logger
     _LOGGER.handlers.clear()
@@ -29,7 +34,7 @@ def init_logging(log_dir: Optional[str] = None, debug: bool = False) -> None:
     console.setFormatter(_logging.Formatter(
         "%(asctime)s %(levelname)s: %(message)s", "%H:%M:%S"))
     _LOGGER.addHandler(console)
-    if log_dir is not None:
+    if log_dir is not None and parallel.is_lead():
         Path(log_dir).mkdir(parents=True, exist_ok=True)
         handler = _logging.FileHandler(str(Path(log_dir) / "run.log"))
         handler.setFormatter(_logging.Formatter(
@@ -66,14 +71,15 @@ def _id2name(remove_classes, label_mode: str) -> Dict[int, str]:
 
 class WandbLogger:
     """A thin wandb sink; every method does nothing unless ``enabled`` was
-    asked for and ``wandb`` imports."""
+    asked for, ``wandb`` imports and this process is rank 0 of its process
+    group (``parallel/dist.py``), if it is in one."""
 
     def __init__(self, project: Optional[str] = None,
                  entity: Optional[str] = None,
                  run_name: Optional[str] = None, enabled: bool = False,
                  config: Optional[dict] = None):
         self._wandb = None
-        if enabled:
+        if enabled and parallel.is_lead():
             try:
                 self._wandb = importlib.import_module("wandb")
             except ImportError:

@@ -13,6 +13,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from codeps_torch import parallel
 from codeps_torch.geometry.warp import warp_image
 from codeps_torch.ops.topk import top_k_mean
 
@@ -62,7 +63,9 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
                   ignore_index: int = 255,
                   dtype: torch.dtype | None = None) -> torch.Tensor:
     """Per-pixel weighted CE, then the mean of the top
-    ``int(top_k_percent_pixels * B*H*W)`` pixel losses over the batch.
+    ``int(top_k_percent_pixels * B*H*W)`` pixel losses over the batch;
+    inside a process group (``parallel/dist.py``) over the global batch,
+    whose every rank holds B rows.
 
     Args:
       prediction: (B, C, H, W) softmax probabilities.
@@ -88,7 +91,8 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
     loss = loss * pixel_weights
     if top_k_percent_pixels < 1.0:
         flat = loss.reshape(-1)
-        return top_k_mean(flat, int(top_k_percent_pixels * flat.shape[0]))
+        pixels = flat.shape[0] * parallel.group_size()
+        return top_k_mean(flat, int(top_k_percent_pixels * pixels))
     return loss.to(torch.float32).mean()
 
 

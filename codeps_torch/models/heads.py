@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from codeps_torch import parallel
 from codeps_torch.geometry.pose import transformation_from_parameters
 from codeps_torch.models.precision import ComputeDtype
 from codeps_torch.models.resnet import BatchNorm2d
@@ -193,7 +194,8 @@ class FlowHead(ComputeDtype, nn.Module):
     ``upconvs_1`` only at scales 1..4, the last conv + ELU to 3 channels
     (``translation_layer``), scaled by 0.001. The auto-mask keeps a pixel
     only where its motion norm is strictly greater than the mean norm
-    over the whole batch it is given, so the masks of two pairs depend on
+    over the whole batch it is given (inside a process group, the global
+    batch: ``parallel/dist.py``), so the masks of two pairs depend on
     whether they go through together.
     """
 
@@ -224,7 +226,8 @@ class FlowHead(ComputeDtype, nn.Module):
         flow = 0.001 * x.float()
         if self.auto_mask:
             norm = torch.sqrt((flow * flow).sum(dim=1, keepdim=True))
-            flow = flow * (norm > norm.mean()).to(flow.dtype)
+            mean = parallel.mean_over_ranks(norm.detach().mean())
+            flow = flow * (norm > mean).to(flow.dtype)
         return flow
 
 

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from codeps_torch import parallel
 from codeps_torch.models.precision import ComputeDtype
 
 _STAGES = {
@@ -41,27 +42,133 @@ _STAGES = {
 }
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalization over the global batch of the
+    process group (SyncBN), in plain PyTorch for CPU tensors: each rank's
+    (count, mean, M2) per channel are gathered and combined by Chan's
+    parallel rule; the backward all-reduces the per-channel sums of the
+    output gradient and of its product with the normalized input.
+    Statistics and arithmetic in float32 (float64 for a float64 input);
+    the output in the input's dtype. Returns (output, mean, biased
+    variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(dtype)
+        count = x.numel() // x.shape[1]
+        var_r, mean_r = torch.var_mean(xs, dim=(0, 2, 3), correction=0)
+        local = torch.stack([torch.full_like(mean_r, count), mean_r,
+                             var_r * count])
+        n_r, mean_r, m2_r = parallel.all_gather(local).unbind(1)
+        n = n_r.sum(0)
+        mean = (n_r * mean_r).sum(0) / n
+        var = (m2_r.sum(0) + (n_r * (mean_r - mean) ** 2).sum(0)) / n
+        invstd = torch.rsqrt(var + eps)
+        scale = (weight.to(dtype) * invstd)[:, None, None]
+        out = (xs - mean[:, None, None]) * scale \
+            + bias.to(dtype)[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return out.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_mean, _grad_var):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        dtype = mean.dtype
+        g = grad_out.to(dtype)
+        xhat = (x.to(dtype) - mean[:, None, None]) * invstd[:, None, None]
+        sum_g = g.sum(dim=(0, 2, 3))
+        sum_gx = (g * xhat).sum(dim=(0, 2, 3))
+        total = parallel.all_reduce(torch.stack([sum_g, sum_gx]))
+        dx = (weight.to(dtype) * invstd)[:, None, None] * (
+            g - (total[0] / n)[:, None, None]
+            - xhat * (total[1] / n)[:, None, None])
+        return (dx.to(x.dtype), sum_gx.to(weight.dtype),
+                sum_g.to(weight.dtype), None)
+
+
+class _GlobalBatchNormCuda(torch.autograd.Function):
+    """``_GlobalBatchNorm`` for CUDA tensors, on the fused kernels of
+    torch's ``SyncBatchNorm`` (``torch.batch_norm_stats`` and friends;
+    they have no CPU version): per-rank mean and inverse deviation by
+    Welford in float32 (float64 for a float64 input), gathered with the
+    counts and combined by Chan's rule, the backward's two per-channel
+    sums all-reduced. The running statistics are left to the caller
+    (torch's would move the variance with the unbiased one), which gets
+    the biased variance back as ``invstd**-2 - eps``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        x = x.contiguous()
+        mean_r, invstd_r = torch.batch_norm_stats(x, eps)
+        count = mean_r.new_full((1,), x.numel() // x.shape[1])
+        mean_all, invstd_all, counts = parallel.all_gather(
+            torch.cat([mean_r, invstd_r, count])).split(x.shape[1], dim=1)
+        counts = counts.reshape(-1)
+        # scratch running statistics (momentum 0) set the kernel's type to
+        # the statistics'; without them it is the input's, and the counts
+        # of a bfloat16 input would be bfloat16
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, mean_all, invstd_all, torch.zeros_like(mean_r),
+            torch.ones_like(mean_r), 0.0, eps, counts)
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              counts.to(torch.int32))
+        var = invstd.pow(-2) - eps
+        ctx.mark_non_differentiable(mean, var)
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd,
+                                      eps), mean, var
+
+    @staticmethod
+    def backward(ctx, grad_out, _grad_mean, _grad_var):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        grad_out = grad_out.contiguous()
+        sum_dy, sum_dy_xmu, grad_weight, grad_bias = \
+            torch.batch_norm_backward_reduce(grad_out, x, mean, invstd,
+                                             weight, True, True, True)
+        sum_dy, sum_dy_xmu = parallel.all_reduce(
+            torch.cat([sum_dy, sum_dy_xmu])).split(x.shape[1])
+        grad_in = torch.batch_norm_backward_elemt(
+            grad_out, x, mean, invstd, weight.to(mean.dtype), sum_dy,
+            sum_dy_xmu, counts)
+        return grad_in, grad_weight, grad_bias, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (same parameters, buffers and state-dict keys)
     whose train-mode update of the running variance takes the *biased*
     batch variance, as Flax's does; torch's own takes the unbiased one,
     n / (n - 1) larger. ``momentum`` None is the cumulative average, as in
     torch. The statistics are computed in float32 whatever the input's
-    dtype."""
+    dtype (float64 for a float64 input).
+
+    Inside a process group of several ranks (``parallel/dist.py``) train
+    mode takes the statistics of the global batch, for the output, the
+    running statistics and the backward, as the JAX package's sharded
+    step does (``codeps_tpu/tasks/train.py:8-12``); a group of one takes
+    the single-process path."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        out = F.batch_norm(x, None, None, self.weight, self.bias, True,
-                           0.0, self.eps)
+        global_batch = parallel.group_size() > 1
+        if global_batch:
+            fn = _GlobalBatchNormCuda if x.is_cuda else _GlobalBatchNorm
+            out, mean, var = fn.apply(x, self.weight, self.bias, self.eps)
+        else:
+            out = F.batch_norm(x, None, None, self.weight, self.bias, True,
+                               0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
+            if not global_batch:
+                var, mean = torch.var_mean(
+                    x.to(torch.promote_types(x.dtype, torch.float32)),
+                    dim=(0, 2, 3), correction=0)
             self.num_batches_tracked.add_(1)
             factor = (1.0 / float(self.num_batches_tracked)
                       if self.momentum is None else self.momentum)
-            self.running_mean.lerp_(mean, factor)
-            self.running_var.lerp_(var, factor)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype),
+                                    factor)
+            self.running_var.lerp_(var.to(self.running_var.dtype), factor)
         return out
 
 

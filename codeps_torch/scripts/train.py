@@ -1,4 +1,5 @@
-"""Pretraining from the command line, with the port, on one card.
+"""Pretraining from the command line, with the port, on one card or
+data-parallel on several.
 
 Counterpart of ``scripts/train.py`` (the reference's
 ``scripts/train_codeps.py``): supervised panoptic and self-supervised
@@ -8,8 +9,20 @@ validation with losses every ``logging.val_epoch_interval`` epochs.
 ``main`` parses the arguments, reads the YAML, builds the dataset readers
 from files and writes ``config.yaml``; ``run_training`` does everything
 after that on datasets it is handed, so in-memory datasets run the same
-path. The global batch is ``train.batch_size_per_gpu``: data parallelism
-over several cards is not ported.
+path.
+
+Started by ``python -m torch.distributed.run --nproc_per_node N``, the
+processes form a process group (``parallel/dist.py``, the counterpart of
+``codeps_tpu/parallel/mesh.py``): ``--device cuda`` puts rank r on card
+``cuda:LOCAL_RANK`` over NCCL, an explicit ``cuda:K`` puts every rank on
+card K over gloo (NCCL refuses two ranks on one card), ``cpu`` runs gloo.
+The global batch is ``train.batch_size_per_gpu`` times the ranks, each
+rank loading its shard; the step takes the global batch's gradient,
+BatchNorm statistics and top-k (the JAX package's mesh semantics), and
+validation reads the global val batch on every rank and evaluates its
+rows. Rank 0 alone writes the run directory, the log file, wandb and the
+checkpoints. Alone, the process runs on one card with the global batch
+``train.batch_size_per_gpu``.
 
 ``tpu.remat`` is not acted on: the JAX package recomputes the encoder's
 activations to fit batch 6 at 512x1024 into a 16 GB chip, and one H100
@@ -18,6 +31,9 @@ phase 9).
 
 Example:
     python -m codeps_torch.scripts.train --run_name r1 \\
+        --filename_config cfg/train_cityscapes.yaml
+    python -m torch.distributed.run --nproc_per_node 4 \\
+        -m codeps_torch.scripts.train --run_name r4 \\
         --filename_config cfg/train_cityscapes.yaml
 """
 
@@ -31,6 +47,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from codeps_torch import parallel
 from codeps_torch.data.loader import DataLoader
 from codeps_torch.device import resolve_device
 from codeps_torch.evaluation.meters import AverageMeter
@@ -79,7 +96,8 @@ def parse_args(argv=None):
     parser.add_argument("--wandb_project", default="codeps_torch")
     parser.add_argument("--wandb_entity", default=None)
     parser.add_argument("--device", default="cuda",
-                        help="torch device to run on (default: cuda)")
+                        help="torch device to run on (default: cuda; "
+                             "under torchrun cuda:LOCAL_RANK)")
     return parser.parse_args(argv)
 
 
@@ -118,7 +136,9 @@ def run_training(cfg, train_dataset, val_dataset, *, seed: int = 42,
                  wandb_logger: Optional[WandbLogger] = None,
                  noise=None) -> Dict[str, Any]:
     """Pretrain on ``train_dataset`` on ``device`` (``cuda`` unless given)
-    and validate on ``val_dataset``.
+    and validate on ``val_dataset``; inside a process group
+    (``parallel.process_group``, which ``main`` enters) data-parallel over
+    its ranks, on the rank's ``device``.
 
     Seeded modules, then ``pre_train_checkpoints`` (paths or
     ``module:path``), then, with ``checkpoint``, the run resumes: modules,
@@ -139,12 +159,18 @@ def run_training(cfg, train_dataset, val_dataset, *, seed: int = 42,
     device = resolve_device(device)
     wandb_logger = wandb_logger or WandbLogger()
     run_dir = Path(run_dir) if run_dir is not None else None
-    log_info("Train samples: %d | Val samples: %d", len(train_dataset),
-             len(val_dataset))
+    ranks = parallel.world_size()
+    log_info("Train samples: %d | Val samples: %d | rank %d of %d on %s",
+             len(train_dataset), len(val_dataset), parallel.rank(), ranks,
+             device)
+    # each rank loads its shard of the global batch; validation reads the
+    # global batch whole on every rank (a wrapped shard would count an
+    # item twice)
     train_loader = DataLoader(train_dataset, cfg.train.batch_size_per_gpu,
                               cfg.dataset.offsets, shuffle=True, seed=seed,
+                              shard_index=parallel.rank(), num_shards=ranks,
                               num_workers=cfg.train.nof_workers_per_gpu)
-    val_loader = DataLoader(val_dataset, cfg.val.batch_size_per_gpu,
+    val_loader = DataLoader(val_dataset, cfg.val.batch_size_per_gpu * ranks,
                             cfg.dataset.offsets, shuffle=False,
                             drop_last=False)
 
@@ -265,30 +291,34 @@ def run_training(cfg, train_dataset, val_dataset, *, seed: int = 42,
 
 def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    resolve_device(args.device)
     np.random.seed(args.seed)
     from codeps_torch.config import gen_config
 
     cfg = gen_config(args.filename_config)
     run_dir = Path(args.experiments_dir) / f"train_{args.run_name}"
-    run_dir.mkdir(parents=True, exist_ok=True)
-    (run_dir / "config.yaml").write_text(cfg.dump())
-    init_logging(str(run_dir / "logs"), debug=args.debug)
-    wandb_logger = WandbLogger(project=args.wandb_project,
-                               entity=args.wandb_entity,
-                               run_name=args.run_name, enabled=args.wandb,
-                               config=cfg.to_dict())
-    result = run_training(
-        cfg, build_dataset(cfg, cfg.dataset.train_split, return_depth=False),
-        build_dataset(cfg, cfg.dataset.val_split,
-                      return_depth=cfg.model.make_depth),
-        seed=args.seed, checkpoint=args.checkpoint,
-        pre_train_checkpoints=args.pre_train_checkpoint,
-        eval_only=args.eval, freeze_modules=args.freeze_modules,
-        max_steps=args.max_steps, run_dir=str(run_dir), device=device,
-        wandb_logger=wandb_logger)
-    wandb_logger.finish()
-    log_info("End of training script!")
+    with parallel.process_group(args.device) as device:
+        if parallel.is_lead():
+            run_dir.mkdir(parents=True, exist_ok=True)
+            (run_dir / "config.yaml").write_text(cfg.dump())
+        parallel.barrier()
+        init_logging(str(run_dir / "logs"), debug=args.debug)
+        wandb_logger = WandbLogger(project=args.wandb_project,
+                                   entity=args.wandb_entity,
+                                   run_name=args.run_name,
+                                   enabled=args.wandb, config=cfg.to_dict())
+        result = run_training(
+            cfg, build_dataset(cfg, cfg.dataset.train_split,
+                               return_depth=False),
+            build_dataset(cfg, cfg.dataset.val_split,
+                          return_depth=cfg.model.make_depth),
+            seed=args.seed, checkpoint=args.checkpoint,
+            pre_train_checkpoints=args.pre_train_checkpoint,
+            eval_only=args.eval, freeze_modules=args.freeze_modules,
+            max_steps=args.max_steps, run_dir=str(run_dir), device=device,
+            wandb_logger=wandb_logger)
+        wandb_logger.finish()
+        log_info("End of training script!")
     return result
 
 

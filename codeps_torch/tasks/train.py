@@ -3,7 +3,8 @@ and Adam.
 
 Counterpart of ``codeps_tpu/tasks/train.py`` (the reference's train
 iteration, ``codeps/online_adap.py:76-139`` and
-``scripts/train_codeps.py:98-108``), on one card. As there, without a
+``scripts/train_codeps.py:98-108``), on one card or, data-parallel,
+on several (``parallel/dist.py``). As there, without a
 flow head the depth encoder runs on frame t only (the reference also
 encodes t-1 and t+1 but consumes neither, ``train.py:14-18``); with one,
 the three frames go through it in one 3B pass
@@ -30,6 +31,7 @@ from typing import Any, Dict
 
 import torch
 
+from codeps_torch import parallel
 from codeps_torch.evaluation.depth_metrics import compute_depth_metrics
 from codeps_torch.evaluation.semantic_metrics import compute_confusion_matrix
 from codeps_torch.losses import (binary_mask_loss, center_loss,
@@ -148,6 +150,12 @@ def make_train_step(cfg, class_weights, sem_ignore_classes=None,
     (the confusion matrix against ``semantic_eval`` or ``semantic``,
     without ``eval_ignore_classes``) and, when the batch has ``depth_gt``,
     the depth metrics; tensors on the device.
+
+    Inside a process group (``parallel/dist.py``) ``batch`` is this rank's
+    share of the global batch: the gradients are averaged over the ranks
+    before Adam, the automask noise is this rank's rows of the global
+    batch's draw from the generator (in the same state on every rank),
+    and the metrics are the global batch's.
     """
     loss_fn = make_loss_fn(cfg, class_weights, sem_ignore_classes)
     use_gt_scale = cfg.eval.depth.use_gt_scale
@@ -157,17 +165,22 @@ def make_train_step(cfg, class_weights, sem_ignore_classes=None,
         batch = batch_to_device(dict(batch), state.device)
         if noise is None:
             def noise(shape):
-                return torch.randn(shape, generator=state.generator,
-                                   device=state.device)
+                return parallel.global_normal(shape, state.generator,
+                                              state.device)
         state.optimizer.zero_grad(set_to_none=True)
         total, losses, preds = loss_fn(state.modules, batch, noise)
         total.backward()
+        parallel.average_gradients(
+            p for group in state.optimizer.param_groups
+            for p in group["params"])
         set_learning_rate(state.optimizer, state.schedule(state.step))
         state.optimizer.step()
         state.step += 1
 
-        metrics = {"loss_total": total.detach(),
-                   **{k: v.detach() for k, v in losses.items()}}
+        scalars = {"loss_total": total, **losses}
+        means = parallel.mean_over_ranks(
+            torch.stack([v.detach() for v in scalars.values()]))
+        metrics = dict(zip(scalars, means.unbind()))
         if "semantic" in preds and "semantic" in batch:
             metrics["sem_conf"] = compute_confusion_matrix(
                 preds["semantic"], batch.get("semantic_eval",

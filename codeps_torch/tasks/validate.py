@@ -10,15 +10,27 @@ the GT offsets go to the device as (2, H, W) planes, which the kernel
 reads in place. With ``compute_loss`` each batch also goes through the
 pretraining loss with running statistics (``tasks/train.make_loss_fn``,
 ``train=False``), as ``codeps_tpu/tasks/validate.py:105-116`` does.
+
+Inside a process group (``parallel/dist.py``) every rank reads the same
+global batch and evaluates its contiguous rows, as the JAX package's
+processes do (``validate.py:52-104``); a batch that does not divide over
+the ranks (the last, with ``drop_last=False``) is evaluated whole on
+every rank and counted once. Each batch's statistics are those of the
+global batch (the confusion matrix and depth metrics sum over the ranks,
+the losses are the means of the ranks' equal shares, the top-k is
+global), and the PQ statistics of the ranks are merged at the end. The
+visual panels show rank 0's rows of the first batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
+from codeps_torch import parallel
 from codeps_torch.evaluation import PanopticEvaluator, compute_sem_miou
 from codeps_torch.tasks.adapt import make_eval_step, make_gt_panoptic_step
 
@@ -76,7 +88,7 @@ def run_validation(cfg, modules, loader, thing_list, stuff_list,
         generator = torch.Generator(device=device)
 
         def noise(shape):
-            return torch.randn(shape, generator=generator, device=device)
+            return parallel.global_normal(shape, generator, device)
     loss_sums: Dict[str, float] = {}
     loss_count = 0
 
@@ -89,21 +101,30 @@ def run_validation(cfg, modules, loader, thing_list, stuff_list,
     for batch_index, batch_np in enumerate(loader):
         if max_batches is not None and batch_index >= max_batches:
             break
-        batch = _to_device(batch_np, device,
-                           tuple(batch_np) if compute_loss else _EVAL_KEYS)
-        results, stats = eval_step(modules, batch)
-        if loss_fn is not None:
-            generator.manual_seed(0)
-            with torch.no_grad():
-                total, losses, _ = loss_fn(modules, batch, noise)
-            for key, value in (("val_loss", total), *(
-                    (f"val_loss_{k}", v) for k, v in losses.items())):
-                loss_sums[key] = loss_sums.get(key, 0.0) + float(value)
-            loss_count += 1
+        rows = len(next(iter(batch_np.values())))
+        divides = rows % parallel.group_size() == 0
+        if divides:
+            batch_np = {key: value[parallel.shard_rows(rows)]
+                        for key, value in batch_np.items()}
+        with (contextlib.nullcontext() if divides
+              else parallel.replicated()):
+            batch = _to_device(batch_np, device, tuple(batch_np)
+                               if compute_loss else _EVAL_KEYS)
+            results, stats = eval_step(modules, batch)
+            if loss_fn is not None:
+                generator.manual_seed(0)
+                with torch.no_grad():
+                    total, losses, _ = loss_fn(modules, batch, noise)
+                    names = ["val_loss", *(f"val_loss_{k}" for k in losses)]
+                    values = parallel.mean_over_ranks(
+                        torch.stack([total, *losses.values()]))
+                for key, value in zip(names, values.tolist()):
+                    loss_sums[key] = loss_sums.get(key, 0.0) + value
+                loss_count += 1
         pan_gt = None
         gt_sem = batch.get("semantic_eval", batch.get("semantic"))
         if "panoptic" in results and "center" in batch \
-                and gt_sem is not None:
+                and gt_sem is not None and (divides or parallel.is_lead()):
             pan_gt = gt_panoptic(gt_sem, batch["center"], batch["offset"])
         stats = {key: value.cpu().numpy() for key, value in stats.items()}
 
@@ -123,6 +144,11 @@ def run_validation(cfg, modules, loader, thing_list, stuff_list,
             panoptic_eval.update(pan_gt.cpu().numpy(),
                                  results["panoptic"].cpu().numpy())
 
+    if parallel.active():
+        parts = parallel.gather_objects(panoptic_eval.pq_stats)
+        panoptic_eval.pq_stats = parts[0]
+        for part in parts[1:]:
+            panoptic_eval.pq_stats += part
     metrics: Dict[str, Any] = {}
     if first_visuals is not None:
         from codeps_torch.io.visualizations import gen_visualizations

@@ -2,7 +2,9 @@
 (``chip_smoke.py``, ``profile_adapt_step.py``, ``time_grouping.py``)
 import no JAX and nothing of ``codeps_tpu``, import no YAML/PIL/cv2 at
 import time (the card machine may lack them), and their entry points
-never fall back to the CPU on their own."""
+never fall back to the CPU on their own. The streamed path's modules,
+``codeps_torch.parallel`` first, are checked over this file and
+``tests/test_torch_import_streamed.py`` (a file holds under 13 tests)."""
 
 import copy
 import re
@@ -13,6 +15,8 @@ from pathlib import Path
 
 import pytest
 import torch
+
+from torch_import_cases import STREAM_MODULES, check_streamed_import
 
 REPO = Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "codeps_tpu", "yaml", "PIL",
@@ -102,43 +106,9 @@ def test_entry_points_raise_without_a_card(no_cuda, tmp_path):
     assert net.device == torch.device("cpu")
 
 
-STREAM_MODULES = ("codeps_torch.tasks.adapt_loop",
-                  "codeps_torch.tasks.mixup_prep",
-                  "codeps_torch.data.replay_buffer",
-                  "codeps_torch.data.preprocessing",
-                  "codeps_torch.data.kitti_360",
-                  "codeps_torch.data.cityscapes",
-                  "codeps_torch.data.synthetic",
-                  "codeps_torch.evaluation.panoptic_metrics",
-                  "codeps_torch.data.sem_kitti_dvps",
-                  "codeps_torch.data.loader",
-                  "codeps_torch.tasks.validate",
-                  "codeps_torch.io.checkpoint",
-                  "codeps_torch.io.logging",
-                  "codeps_torch.scripts.adapt",
-                  "codeps_torch.models.precision",
-                  "codeps_torch.tasks.state",
-                  "codeps_torch.tasks.train",
-                  "codeps_torch.scripts.train")
-
-
-@pytest.mark.parametrize("module", STREAM_MODULES)
+@pytest.mark.parametrize("module", STREAM_MODULES[:7])
 def test_streamed_path_imports_no_pil_cv2_or_yaml(module):
-    """Even where PIL, cv2 and yaml are installed, importing a module of
-    the streamed path loads none of them: only the file readers and
-    writers import them, inside their functions."""
-    script = textwrap.dedent(f"""
-        import sys
-        sys.path.insert(0, {str(REPO)!r})
-        import importlib
-        importlib.import_module({module!r})
-        print(sorted(m for m in ("PIL", "cv2", "yaml", "jax")
-                     if m in sys.modules))
-    """)
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "[]", proc.stdout
+    check_streamed_import(module)
 
 
 def _target_stub():

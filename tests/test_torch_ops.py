@@ -3,6 +3,8 @@
 Inputs come from ``numpy.random.default_rng`` and reach both packages as
 numpy arrays; everything runs on the CPU. Integer outputs and
 thresholds must match exactly; the resize tolerance is stated below.
+
+Split over ``tests/test_torch_ops*.py`` (under 13 tests a file).
 """
 
 import numpy as np
@@ -11,17 +13,11 @@ import torch
 
 import jax.numpy as jnp
 
-import codeps_tpu.ops.panoptic as jax_panoptic
 from codeps_tpu.ops.normalize import maybe_normalize as jax_maybe_normalize
-from codeps_tpu.ops.pallas.grouping import group_pixels_pallas
 from codeps_tpu.ops.resize import resize_bilinear as jax_resize_bilinear
 from codeps_tpu.ops.resize import upsample_nearest_2x as jax_upsample_2x
-from codeps_tpu.ops.topk import kth_largest as jax_kth_largest
 
-from codeps_torch.ops import grouping, normalize, panoptic, resize, topk
-
-THINGS = (9, 10, 11, 12, 13)
-NUM_CLASSES = 14
+from codeps_torch.ops import normalize, resize
 
 
 def _t(array):
@@ -62,161 +58,3 @@ def test_upsample_nearest_2x_exact():
     ours = resize.upsample_nearest_2x(_t(img)).numpy()
     ref = np.asarray(jax_upsample_2x(jnp.asarray(img)))
     np.testing.assert_array_equal(ours, ref)
-
-
-@pytest.mark.parametrize("k", [1, 7, 100, 4096])
-def test_kth_largest_exact_with_ties_and_zero_sentinel(k):
-    rng = np.random.default_rng(3)
-    values = np.zeros(4096, np.float32)
-    hits = rng.choice(4096, 60, replace=False)
-    values[hits] = rng.choice(np.float32([0.25, 0.5, 0.7, 0.9]), 60)
-    values[hits[:3]] = 1.0                                   # ties at the top
-    values[hits[3]] = -0.0
-    ours = topk.kth_largest(_t(values), k).item()
-    ref = float(jax_kth_largest(jnp.asarray(values), k))
-    assert ours == ref
-
-
-def _heatmap(rng, height, width, num_peaks):
-    yy, xx = np.mgrid[0:height, 0:width]
-    heat = np.zeros((height, width), np.float32)
-    for y, x in zip(rng.integers(0, height, num_peaks),
-                    rng.integers(0, width, num_peaks)):
-        heat = np.maximum(heat, rng.uniform(0.3, 1.0) * np.exp(
-            -((yy - y) ** 2 + (xx - x) ** 2) / rng.uniform(4, 30)))
-    return heat.astype(np.float32)
-
-
-@pytest.mark.parametrize("top_k", [8, 200])
-@pytest.mark.parametrize("kind", ["peaks", "noise"])
-def test_find_instance_centers_exact(top_k, kind):
-    """'peaks' leaves few candidates (unsaturated at top_k 200); 'noise'
-    leaves hundreds (saturated at both)."""
-    rng = np.random.default_rng(4)
-    if kind == "peaks":
-        heat = _heatmap(rng, 48, 96, 12)
-    else:
-        heat = rng.uniform(0, 1, (48, 96)).astype(np.float32)
-    ours = panoptic.find_instance_centers(_t(heat), top_k=top_k)
-    ref = jax_panoptic.find_instance_centers(jnp.asarray(heat), top_k=top_k)
-    valid = np.asarray(ref.valid)
-    assert valid.any()
-    np.testing.assert_array_equal(ours.valid.numpy(), valid)
-    np.testing.assert_array_equal(ours.yx.numpy()[valid],
-                                  np.asarray(ref.yx)[valid])
-    np.testing.assert_array_equal(ours.score.numpy()[valid],
-                                  np.asarray(ref.score)[valid])
-
-
-def _grouping_case(name):
-    """(centers yx (K, 2), valid (K,), offsets (H, W, 2)) as numpy; the
-    first three follow tests/test_pallas_grouping.py."""
-    rng = np.random.default_rng(17)
-    height, width, k = 32, 128, 8
-    yx = rng.uniform([0, 0], [height, width], (k, 2)).astype(np.float32)
-    valid = np.zeros((k,), bool)
-    valid[:5] = True
-    offsets = rng.normal(0, 5, (height, width, 2)).astype(np.float32)
-    if name == "no_valid":
-        valid[:] = False
-        offsets = np.zeros((16, width, 2), np.float32)
-    elif name == "heatmap":
-        heat = np.zeros((height, width), np.float32)
-        yy, xx = np.mgrid[0:height, 0:width]
-        for y, x in ((5, 20), (18, 90), (28, 40)):
-            heat = np.maximum(heat, np.exp(-((yy - y) ** 2 + (xx - x) ** 2)
-                                           / 50.0))
-        centers = jax_panoptic.find_instance_centers(jnp.asarray(heat),
-                                                     top_k=8)
-        yx, valid = np.asarray(centers.yx), np.asarray(centers.valid)
-        offsets = rng.normal(0, 2, (height, width, 2)).astype(np.float32)
-    elif name == "nan_offsets":
-        offsets[rng.random((height, width)) < 0.1, 0] = np.nan
-        offsets[rng.random((height, width)) < 0.05, 1] = np.nan
-        valid[0] = False                  # all-NaN pixels keep id 1
-    elif name == "duplicate_centers":
-        yx[3] = yx[1]
-        yx[4] = np.round(yx[4])
-        offsets = np.round(offsets)               # exact ties on the grid
-        yx = np.round(yx)
-    elif name == "k_not_multiple_of_8":
-        k = 13
-        yx = rng.uniform([0, 0], [height, width], (k, 2)).astype(np.float32)
-        valid = rng.random(k) < 0.7
-        valid[2] = True
-    return yx.astype(np.float32), valid, offsets.astype(np.float32)
-
-
-GROUPING_CASES = ["random", "no_valid", "heatmap", "nan_offsets",
-                  "duplicate_centers", "k_not_multiple_of_8"]
-
-
-@pytest.mark.parametrize("case", GROUPING_CASES)
-def test_group_pixels_plain_bit_exact_vs_jax(case):
-    yx, valid, offsets = _grouping_case(case)
-    ours = grouping.group_pixels(_t(yx), _t(valid), _t(offsets)).numpy()
-    ref = np.asarray(jax_panoptic.group_pixels(
-        jax_panoptic.Centers(jnp.asarray(yx), jnp.ones(len(yx)),
-                             jnp.asarray(valid)), jnp.asarray(offsets)))
-    assert ours.dtype == np.int32
-    np.testing.assert_array_equal(ours, ref)
-    if len(yx) % 8 == 0:
-        pallas = np.asarray(group_pixels_pallas(
-            jnp.asarray(yx), jnp.asarray(valid), jnp.asarray(offsets),
-            interpret=True))
-        np.testing.assert_array_equal(ours, pallas)
-
-
-def _head_outputs(rng, batch, height, width):
-    sem = rng.dirichlet(np.full(NUM_CLASSES, 0.3),
-                        (batch, height, width)).astype(np.float32)
-    center = np.stack([_heatmap(rng, height, width, 6)
-                       for _ in range(batch)])[..., None]
-    offsets = rng.normal(0, 3, (batch, height, width, 2)).astype(np.float32)
-    return sem, center, offsets
-
-
-@pytest.mark.parametrize("stuff_area", [0, 40])
-def test_merge_and_panoptic_segmentation_exact(stuff_area):
-    rng = np.random.default_rng(5)
-    sem, center, offsets = _head_outputs(rng, 1, 32, 64)
-    labels = sem[0].argmax(-1).astype(np.int32)
-    labels[rng.random(labels.shape) < 0.05] = 255               # void
-    instance = rng.integers(0, 9, labels.shape).astype(np.int32)
-    instance[~np.isin(labels, THINGS)] = 0
-    valid = np.ones(8, bool)
-    ours = panoptic.merge_semantic_and_instance(
-        _t(labels), _t(instance), _t(valid), THINGS, stuff_area=stuff_area,
-        num_classes=NUM_CLASSES).numpy()
-    ref = np.asarray(jax_panoptic.merge_semantic_and_instance(
-        jnp.asarray(labels), jnp.asarray(instance), jnp.asarray(valid),
-        THINGS, stuff_area=stuff_area, num_classes=NUM_CLASSES))
-    assert ours.dtype == np.int32
-    np.testing.assert_array_equal(ours, ref)
-
-    for sem_in in (sem[0], labels):
-        ours = panoptic.get_panoptic_segmentation(
-            _t(sem_in), _t(center[0, ..., 0]), _t(offsets[0]), THINGS,
-            stuff_area=stuff_area, top_k=16, num_classes=NUM_CLASSES)
-        ref = jax_panoptic.get_panoptic_segmentation(
-            jnp.asarray(sem_in), jnp.asarray(center[0, ..., 0]),
-            jnp.asarray(offsets[0]), THINGS, stuff_area=stuff_area,
-            top_k=16, num_classes=NUM_CLASSES, use_pallas=False)
-        np.testing.assert_array_equal(ours[0].numpy(), np.asarray(ref[0]))
-        np.testing.assert_array_equal(ours[1].numpy(), np.asarray(ref[1]))
-        assert ours[1].numpy().max() > 0
-
-
-def test_panoptic_fusion_batch_exact():
-    rng = np.random.default_rng(6)
-    sem, center, offsets = _head_outputs(rng, 2, 32, 64)
-    pan, inst, centers = panoptic.panoptic_fusion_batch(
-        _t(sem), _t(center), _t(offsets), THINGS)
-    ref_pan, ref_inst, ref_centers = jax_panoptic.panoptic_fusion_batch(
-        jnp.asarray(sem), jnp.asarray(center), jnp.asarray(offsets), THINGS)
-    np.testing.assert_array_equal(centers.valid.numpy(),
-                                  np.asarray(ref_centers.valid))
-    np.testing.assert_array_equal(inst.numpy(), np.asarray(ref_inst))
-    np.testing.assert_array_equal(pan.numpy(), np.asarray(ref_pan))
-    assert pan.dtype == inst.dtype == torch.int32
-    assert inst.numpy().max() > 0

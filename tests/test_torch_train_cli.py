@@ -36,6 +36,7 @@ validation after its two steps keeps PQ and mIoU within 0.005.
 
 import importlib.util
 import pickle
+import shutil
 import sys
 from pathlib import Path
 
@@ -144,7 +145,9 @@ def tree(tmp_path_factory):
             only_rgb=str(only_rgb).lower(),
             weights=", ".join(["1.0"] * NC)))
         return str(path)
-    return tmp, write
+    yield tmp, write
+    # some 3.5 GB of checkpoints, and pytest keeps three runs' temp dirs
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _step_noise(state_rng):
