@@ -186,12 +186,44 @@ Phases, in order; any failure ends the run with a non-zero exit:
     them from the same weights and generator state, in float64 and in
     float32, held to ``ddp_bounds``; (c) NCCL as a world of one in this
     process: NCCL_STEPS steps and a validation;
-14. the ``kernels`` line (with the per-n times and bounds, the times at
+14. spatial sharding (``tpu.spatial_shard``, ``parallel/spatial.py``):
+    SPATIAL_RANKS processes share the card over gloo, each holding a slab
+    of every image's rows. (a) One adaptation step of the published batch
+    (target 1x384x1408 with 2 replay triplets, 2 source triplets and 2
+    fused cut mixups with the camera warp at 512x1024, phase 7's weights)
+    in float64 against one process (rank 0 under ``parallel.replicated``)
+    on the same weights, batch and automask noise: losses, each live
+    module's gradient and parameters within SPATIAL_F64_BOUND, replay
+    features, ``sem_conf`` and the fused panoptic map equal; (b) the same
+    in float32 (TF32 off) on SPATIAL_F32_BATCHES seeded batches: for
+    each module the median over the batches of its gradient's distance
+    from the one-process float64 step over the one-process float32
+    step's, within SPATIAL_F32_FACTOR; then bfloat16 steps timed (row
+    split and one process) and one
+    with its halo exchanges, gathers and gradient all-reduce timed on
+    their own. (c) phase 7's stream for SPATIAL_FRAMES frames through
+    ``AdaptationRunner`` with the row split (rank 0 streams and
+    broadcasts each batch, rank 1 follows) and in one process, in
+    bfloat16 and with float64 modules: equal buffer ids in both; in
+    float64 every panoptic map equal and PQ, mIoU and abs_rel within
+    ``scripts/parity_e2e.py``'s tolerances (a slab's convolutions round
+    otherwise than the whole frame's in bfloat16 and float32 on the
+    card, and the steps carry it through the stream: bfloat16's meters
+    are printed); the frame latency, the
+    follower's step, the broadcast and the gathers a frame, peak memory
+    a rank; the kernel 2 launches a frame on rank 0, 0 on rank 1, equal
+    to its plain version on every call, no copy. (d) ``python -m
+    torch.distributed.run --nproc_per_node 2 -m codeps_torch.scripts.adapt``
+    on synthetic trees at SPATIAL_CLI_SIZE (ResNet-18): exit 0 with rank
+    0's two files and buffer state only; with ``model.make_sflow: true``
+    it must raise NotImplementedError;
+15. the ``kernels`` line (with the per-n times and bounds, the times at
     the CLI's, pretraining's, the host mixup path's and the flow paths'
     shapes and the launches and layout copies on each path), the
     ``adapt_step``, ``adapt_stream``, ``adapt_cli``, ``train``,
-    ``host_mixup_stream``, ``flow`` and ``ddp`` lines, then the last line
-    ``{"ok": true, "device": {...}}``.
+    ``host_mixup_stream``, ``flow``, ``ddp`` and ``spatial`` lines, the
+    script's total wall seconds, then the last line ``{"ok": true,
+    "device": {...}}``. Each phase's wall seconds are printed as it ends.
 
 The full-width runs compute in bfloat16, the package default
 (``cfg.tpu.compute_dtype``, as the JAX package's); phase 6 also times the
@@ -348,10 +380,45 @@ DDP_BOUNDS = {"float32": {"loss_rel": 1e-4, "stat_err": 1e-5,
                           "grad_rel_l2": 1e-6}}
 DDP_F32_FACTOR = 4.0
 NCCL_STEPS = 3
+# phase 14, spatial sharding: SPATIAL_RANKS ranks share the card over gloo.
+# (a) one float64 step of the published batch (the fused cut mixup with
+# the camera warp) against one process, within SPATIAL_F64_BOUND; (b) the
+# same in float32, each module's gradient within SPATIAL_F32_FACTOR times
+# the one-process float32 step's distance from the float64 step; then
+# SPATIAL_TIMED_STEPS timed bfloat16 steps; (c) SPATIAL_FRAMES frames of
+# phase 7's stream against one process; (d) the torchrun CLI on a
+# ResNet-18 config at SPATIAL_CLI_SIZE for SPATIAL_CLI_FRAMES frames.
+SPATIAL_RANKS = 2
+SPATIAL_F64_BOUND = 1e-9
+SPATIAL_F32_FACTOR = 1.5
+# (b) holds the median over SPATIAL_F32_BATCHES seeded batches of each
+# module's ratio: on the card a slab's float32 convolutions round
+# otherwise than the whole frame's (cuDNN chooses by shape; two
+# one-process runs agree to 1e-7), and the automask's minimum and the
+# warp's taps turn such rounding into jumps of the pose gradients of a
+# few percent, as they do float32's own rounding; one batch's ratio
+# scatters (0.58-3.8 on the pose head over the batches measured)
+SPATIAL_F32_BATCHES = 5
+SPATIAL_TIMED_STEPS = 3
+SPATIAL_FRAMES = 6
+SPATIAL_CLI_SIZE = (64, 192)
+SPATIAL_CLI_FRAMES = 3
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    """Prints the wall seconds of the phase before (if any), then the
+    header of ``name`` (None after the last phase)."""
+    now = time.perf_counter()
+    if phase.current is not None:
+        print(f"phase {phase.current}: wall {now - phase.started:.3f} s",
+              flush=True)
+    phase.current, phase.started = name, now
+    if name is not None:
+        print(f"== {name}", flush=True)
+
+
+phase.current = None
+phase.started = 0.0
 
 
 def slice_config():
@@ -2114,7 +2181,507 @@ def _ddp_smoke_parts(torch, rank, world, device, out_dir, allreduce_s):
         "global_step": resumed["global_step"], "exact": exact}
 
 
+def spatial_batch(rng, target_size, source_size):
+    """Phase 14's batch: ``adapt_batch``'s, with the raw materials of the
+    fused cut mixup (source images and labels, target images, the camera
+    warp's taps, cut cells) in place of composed samples."""
+    import numpy as np
+    from codeps_torch.tasks.mixup_prep import c2c_prewarp
+    batch = adapt_batch(rng, target_size, source_size)
+    (ht, wt), (hs, ws) = target_size, source_size
+    cameras = [np.tile(np.asarray([cam], np.float32), (NUM_MIXUP, 1))
+               for cam in (KITTI_360_CAMERA, CITYSCAPES_CAMERA)]
+    batch["mixup"] = {
+        "rgb_src": rng.integers(0, 256, (NUM_MIXUP, hs, ws, 3),
+                                dtype=np.uint8),
+        "semantic_src": rng.integers(0, NUM_CLASSES, (NUM_MIXUP, hs, ws),
+                                     dtype=np.int32),
+        "rgb_tgt": rng.integers(0, 256, (NUM_MIXUP, ht, wt, 3),
+                                dtype=np.uint8),
+        "prewarp": c2c_prewarp(cameras[0], cameras[1], (ht, wt), (hs, ws)),
+        "cut_cells": np.stack([rng.choice(8, 2, replace=False)
+                               for _ in range(NUM_MIXUP)]).astype(np.int32)}
+    return batch
+
+
+def float_frames(torch, batch, dtype):
+    """``batch`` with its uint8 images normalized into ``dtype`` (the
+    step takes float images as normalized): every dtype sees the same
+    values."""
+    from codeps_torch.ops.normalize import IMAGENET_MEAN, IMAGENET_STD
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float64)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float64)
+    out = {}
+    for key, value in batch.items():
+        if isinstance(value, dict):
+            out[key] = float_frames(torch, value, dtype)
+        elif key in ("frames", "rgb_src", "rgb_tgt"):
+            x = torch.as_tensor(value).double() / 255.0
+            out[key] = ((x - mean) / std).to(dtype)
+        else:
+            out[key] = value
+    return out
+
+
+def with_compute_dtype(torch, modules, dtype):
+    """``modules`` with every module's compute dtype set to ``dtype``
+    (``models/precision.py``; the weights keep their own type)."""
+    for name in modules.module_names():
+        getattr(modules, name).compute_dtype = dtype
+    return modules
+
+
+def spatial_step_run(torch, step, cfg, modules, batch, noise, device):
+    """One adaptation step from a fresh state of ``modules``: metrics,
+    the live modules' flat gradients and parameters after the step (on
+    the host), the replay features, and (where the eval is scored) the
+    panoptic map and ``sem_conf``."""
+    from codeps_torch.tasks.adapt_loop import adapt_module_lists
+    from codeps_torch.tasks.state import make_adapt_state
+    frozen, ema = adapt_module_lists(cfg, modules.module_names())
+    state = make_adapt_state(modules, cfg.train.optimizer.learning_rate,
+                             ema_modules=ema, frozen_modules=frozen,
+                             ema_alpha=cfg.adapt.ema.alpha, seed=SEED,
+                             device=device)
+    metrics, features, results, stats = step(
+        state, batch, noise=injected(torch, noise, device))
+    torch.cuda.synchronize()
+    live = state.live_modules()
+    out = {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": {name: torch.cat([p.grad.reshape(-1).double() for p in
+                                   getattr(modules, name).parameters()
+                                   if p.grad is not None]).cpu()
+                  for name in live},
+        "params": {name: torch.cat([p.detach().reshape(-1).double() for p in
+                                    getattr(modules, name).parameters()])
+                   .cpu() for name in live},
+        "features": features.double().cpu(),
+        "panoptic": None if results is None else results["panoptic"].cpu(),
+        "sem_conf": None if stats is None else stats["sem_conf"].cpu()}
+    del state, metrics, features, results, stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def spatial_distances(torch, ours, ref):
+    """The distances of ``spatial_step_run``'s ``ours`` from ``ref``: the
+    losses (relative), each module's gradient (relative L2) and parameters
+    after the step (max |diff| / (1 + max |value|)), the replay features
+    (max |diff|), and whether ``sem_conf`` and the panoptic map are
+    equal."""
+    def rel_l2(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+    out = {
+        "loss_rel": {k: abs(ours["metrics"][k] - v) / max(abs(v), 1e-30)
+                     for k, v in ref["metrics"].items()},
+        "grad_rel_l2": {k: rel_l2(ours["grads"][k], v)
+                        for k, v in ref["grads"].items()},
+        "param_err": {k: float((ours["params"][k] - v).abs().max()
+                               / (1.0 + v.abs().max()))
+                      for k, v in ref["params"].items()},
+        "features": float((ours["features"] - ref["features"]).abs().max())}
+    if ours["panoptic"] is not None and ref["panoptic"] is not None:
+        out["sem_conf_equal"] = bool(torch.equal(ours["sem_conf"],
+                                                 ref["sem_conf"]))
+        out["panoptic_equal"] = bool(torch.equal(ours["panoptic"],
+                                                 ref["panoptic"]))
+        out["panoptic_diff_share"] = float(
+            (ours["panoptic"] != ref["panoptic"]).double().mean())
+    return out
+
+
+def timed_collectives(torch, names):
+    """Wraps each ``codeps_torch.parallel.spatial`` function in ``names``
+    so that its calls are timed on the host clock after a synchronize;
+    returns (the seconds by name, a function that restores them)."""
+    from codeps_torch.parallel import spatial
+    seconds = {name: [] for name in names}
+    saved = {name: getattr(spatial, name) for name in names}
+
+    def timed(name):
+        fn = saved[name]
+
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return call
+    for name in names:
+        setattr(spatial, name, timed(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(spatial, name, fn)
+    return seconds, restore
+
+
+def spatial_exactness(torch, device, modules):
+    """Phase 14 (a), (b) and the timed steps on this rank; ``modules`` are
+    phase 7's float32 weights on the host. Returns rank 0's distances of
+    the row split from one process (float64; float32 with its control),
+    every rank's metrics, the timed steps and the grouping calls."""
+    import numpy as np
+    from codeps_torch import parallel
+    from codeps_torch.ops import grouping
+    from codeps_torch.ops import panoptic as panoptic_ops
+    from codeps_torch.parallel import spatial
+    from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
+                                                 SOURCE_WIDTH)
+    num_scales = adapt_config(target_size,
+                              source_size).depth.num_recon_scales
+
+    def batch_of(index):
+        rng = np.random.default_rng(SEED + 14 + index)
+        batch = spatial_batch(rng, target_size, source_size)
+        return batch, automask_noise(torch, rng, target_size, source_size,
+                                     num_scales)
+    batch, noise = batch_of(0)
+    lead = parallel.rank() == 0
+    calls = []
+    group_pixels = panoptic_ops.group_pixels
+
+    def recording(yx, valid, offsets):
+        out = group_pixels(yx, valid, offsets)
+        calls.append((yx.clone(), valid.clone(), offsets.clone(), out))
+        return out
+    panoptic_ops.group_pixels = recording
+    grouping.group_pixels_cuda.launches = 0
+    grouping.group_pixels_cuda.copies = 0
+
+    def build(dtype_name):
+        cfg = adapt_config(target_size, source_size)
+        cfg.tpu.compute_dtype = dtype_name
+        cfg.adapt.mixup.general.geom_augment = True
+        step = make_adapt_step(
+            cfg, list(cfg.semantics.class_weights), has_replay=True,
+            num_mixup=NUM_MIXUP, mixup_groups=(("cut_mixup", NUM_MIXUP),),
+            fused_mixup=True,
+            eval_forward=build_eval_forward(cfg, THINGS, NUM_CLASSES))
+        return cfg, step
+
+    out, peaks = {"float32": []}, {}
+    try:
+        cfg, step = build("float32")
+        # no autocast: float64 and float32 are each exact
+        mods = with_compute_dtype(torch, modules, torch.float32)
+
+        def run(given, given_noise, dtype, split, name):
+            torch.cuda.reset_peak_memory_stats()
+            with spatial.rows() if split else parallel.replicated():
+                result = spatial_step_run(
+                    torch, step, cfg, copy.deepcopy(mods).to(device, dtype),
+                    given, given_noise, device)
+            peaks[name] = torch.cuda.max_memory_allocated()
+            return result
+
+        for index in range(SPATIAL_F32_BATCHES):
+            given, given_noise = (batch, noise) if index == 0 \
+                else batch_of(index)
+            f64 = float_frames(torch, given, torch.float64)
+            f32 = float_frames(torch, given, torch.float32)
+            truth = None
+            if index == 0:
+                ours = run(f64, given_noise, torch.float64, True,
+                           "float64_split")
+                out["float64"] = {"metrics": ours["metrics"]}
+            if lead:
+                truth = run(f64, given_noise, torch.float64, False,
+                            "float64_one_process")
+                if index == 0:
+                    out["float64"]["against_one_process"] = \
+                        spatial_distances(torch, ours, truth)
+            parallel.barrier()
+            ours = run(f32, given_noise, torch.float32, True,
+                       "float32_split")
+            part = {"metrics": ours["metrics"]}
+            if lead:
+                ref = run(f32, given_noise, torch.float32, False,
+                          "float32_one_process")
+                part["against_one_process"] = spatial_distances(torch, ours,
+                                                                ref)
+                part["to_float64"] = {
+                    "split": spatial_distances(torch, ours, truth),
+                    "one_process": spatial_distances(torch, ref, truth)}
+                if index == 0:
+                    # the one-process step again: the card's run-to-run
+                    # float32 spread, for scale
+                    again = run(f32, given_noise, torch.float32, False,
+                                "float32_one_process")
+                    part["one_process_again"] = spatial_distances(
+                        torch, again, ref)
+                    del again
+            out["float32"].append(part)
+            del ours, truth
+            parallel.barrier()
+        # bfloat16, the package default, on uint8 frames: timed steps of
+        # the row split, then with the collectives timed on their own,
+        # then one process on rank 0
+        cfg, step = build("bfloat16")
+        modules = with_compute_dtype(torch, modules, torch.bfloat16)
+        split_s, one_s = [], []
+        for i in range(1 + SPATIAL_TIMED_STEPS):
+            t0 = time.perf_counter()
+            with spatial.rows():
+                spatial_step_run(torch, step, cfg,
+                                 copy.deepcopy(modules).to(device), batch,
+                                 noise, device)
+            split_s.append(time.perf_counter() - t0)
+        seconds, restore = timed_collectives(torch, ["halo_rows",
+                                                     "gather_rows"])
+        all_reduce = parallel.sum_gradients
+
+        def timed_sum(parameters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(parameters)
+            torch.cuda.synchronize()
+            seconds.setdefault("sum_gradients", []).append(
+                time.perf_counter() - t0)
+        parallel.sum_gradients = timed_sum
+        try:
+            with spatial.rows():
+                spatial_step_run(torch, step, cfg,
+                                 copy.deepcopy(modules).to(device), batch,
+                                 noise, device)
+        finally:
+            restore()
+            parallel.sum_gradients = all_reduce
+        if lead:
+            with parallel.replicated():
+                for i in range(1 + SPATIAL_TIMED_STEPS):
+                    t0 = time.perf_counter()
+                    spatial_step_run(torch, step, cfg,
+                                     copy.deepcopy(modules).to(device),
+                                     batch, noise, device)
+                    one_s.append(time.perf_counter() - t0)
+        parallel.barrier()
+    finally:
+        panoptic_ops.group_pixels = group_pixels
+    launches, copies = (grouping.group_pixels_cuda.launches,
+                        grouping.group_pixels_cuda.copies)
+    max_err = 0
+    for yx, valid, offsets, got in calls:
+        ref_ids = grouping.group_pixels_plain(yx, valid, offsets)
+        max_err = max(max_err, int((got.long() - ref_ids.long()).abs()
+                                   .max()))
+        assert torch.equal(got, ref_ids), "kernel != plain in phase 14"
+    return {"exact": out, "peak_mib": {k: v / 2**20
+                                       for k, v in peaks.items()},
+            "split_step_ms": [t * 1e3 for t in split_s],
+            "one_process_step_ms": [t * 1e3 for t in one_s],
+            "collectives_ms": {k: [t * 1e3 for t in v]
+                               for k, v in seconds.items()},
+            "launches": launches, "copies": copies,
+            "calls": len(calls), "max_abs_err": max_err,
+            "shapes": sorted({tuple(o.shape[:3]) for _, _, o, _ in calls})}
+
+
+def spatial_stream(torch, device, modules):
+    """Phase 14 (c) on this rank: phase 7's stream for SPATIAL_FRAMES
+    frames with ``tpu.spatial_shard`` (rank 0 streams, the others follow),
+    the gathers timed on their own, then on rank 0 the same stream in one
+    process; in bfloat16 (the package default), then with float64 modules
+    (the runner then streams float64 batches). Returns the numbers of
+    each, by name."""
+    import numpy as np
+    from codeps_torch import parallel
+    from codeps_torch.ops import grouping
+    target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
+                                                 SOURCE_WIDTH)
+    lead = parallel.rank() == 0
+
+    def stream(spatial_shard, name, preds):
+        # float64 modules compute without autocast
+        compute = "bfloat16" if name == "bfloat16" else "float32"
+        cfg = stream_config(target_size, source_size)
+        cfg.tpu.spatial_shard = spatial_shard
+        cfg.tpu.compute_dtype = compute
+        mods = with_compute_dtype(torch, copy.deepcopy(modules),
+                                  getattr(torch, compute))
+        runner, buffer = build_stream(
+            cfg, mods.to(device, torch.float64 if name == "float64"
+                         else torch.float32),
+            device, SEED, noise=numpy_noise(torch, SEED, device))
+        if lead:
+            meters, run = drive_stream(torch, runner, card=True,
+                                       max_frames=SPATIAL_FRAMES)
+            numbers = stream_numbers(runner, run)
+            numbers.update(values=meter_values(meters),
+                           ids={k: np.asarray(v).tolist() for k, v in
+                                buffer.buffer_indices.items()},
+                           launches=run["launches"], copies=run["copies"],
+                           calls=len(run["centers"]),
+                           max_abs_err=run["max_abs_err"])
+            preds.append([pred for _, pred in run["pq_maps"]])
+        else:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            grouping.group_pixels_cuda.launches = 0
+            grouping.group_pixels_cuda.copies = 0
+            runner.run(max_frames=SPATIAL_FRAMES)
+            torch.cuda.synchronize()
+            numbers = {"launches": grouping.group_pixels_cuda.launches,
+                       "copies": grouping.group_pixels_cuda.copies,
+                       "peak_mib": torch.cuda.max_memory_allocated()
+                       / 2**20}
+        numbers["row_times_ms"] = {k: [t * 1e3 for t in v]
+                                   for k, v in runner.row_times.items()}
+        del runner, buffer
+        torch.cuda.empty_cache()
+        return numbers
+
+    out = {}
+    for name in ("bfloat16", "float64"):
+        preds = []
+        seconds, restore = timed_collectives(torch, ["gather_rows"])
+        try:
+            part = {"split": stream(True, name, preds)}
+        finally:
+            restore()
+        part["split"]["gather_ms"] = [t * 1e3
+                                      for t in seconds["gather_rows"]]
+        if lead:
+            with parallel.replicated():
+                part["one_process"] = stream(False, name, preds)
+            part["panoptic_diff_share"] = [
+                float((a != b).mean()) for a, b in zip(*preds)]
+        parallel.barrier()
+        out[name] = part
+    return out
+
+
+def spatial_smoke_rank(rank, world, port, out_dir):
+    """One rank of phase 14 (a) to (c), started by
+    ``torch.multiprocessing.spawn``: every rank on the explicit card
+    ``cuda:0``, over gloo. Reads phase 7's weights from
+    ``out_dir/modules.pt`` and writes its numbers to
+    ``out_dir/rank<rank>.json``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import torch
+    from codeps_torch import parallel
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(out_dir)
+    device = torch.device("cuda", 0)
+    modules = torch.load(out_dir / "modules.pt", weights_only=False)
+    with parallel.process_group(device):
+        assert torch.distributed.get_backend() == "gloo"
+        t0 = time.perf_counter()
+        numbers = {"rank": rank, "exactness": spatial_exactness(
+            torch, device, modules)}
+        numbers["exactness_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numbers["stream"] = spatial_stream(torch, device, modules)
+        numbers["stream_s"] = time.perf_counter() - t0
+    (out_dir / f"rank{rank}.json").write_text(json.dumps(
+        numbers, default=float))
+
+
+SPATIAL_CLI_YAML = """
+model:
+  make_sflow: {sflow}
+  po_depth_net:
+    params:
+      nof_layers: 18
+adapt:
+  model:
+    backbone_po_depth: false
+    instance: false
+  ema:
+    semantic: true
+    alpha: 0.99
+  source_dataset:
+    name: cityscapes
+    path: {cs}
+    feed_img_size: [{height}, {width}]
+  replay_sampler:
+    nof_source_samples: 2
+    nof_target_samples: 2
+  replay_buffer:
+    maximize_diversity: true
+    target_size: 3
+  mixup:
+    general:
+      mixup_strategies: [cut_mixup, cut_mixup]
+      nof_samples: 2
+dataset:
+  name: kitti_360
+  path: {k360}
+  sequences: ["03"]
+  feed_img_size: [{height}, {width}]
+  center_heatmap_sigma: 4
+tpu:
+  spatial_shard: true
+"""
+
+
+def spatial_cli(root):
+    """Phase 14 (d): ``python -m torch.distributed.run --nproc_per_node
+    SPATIAL_RANKS -m codeps_torch.scripts.adapt`` on synthetic KITTI-360
+    and Cityscapes trees written under ``root`` (ResNet-18 at
+    SPATIAL_CLI_SIZE, ``tpu.spatial_shard: true``, every rank on card
+    ``cuda:0`` over gloo), then the same with ``model.make_sflow: true``,
+    which must fail. Returns (seconds, files written, the flow run's
+    exit code, output tails)."""
+    import os
+    from codeps_torch.data.synthetic import (make_cityscapes_tree,
+                                             make_kitti360_tree)
+    height, width = SPATIAL_CLI_SIZE
+    cs = make_cityscapes_tree(root / "cs", num_frames=6, width=width,
+                              height=height)
+    make_cityscapes_tree(cs, num_frames=2, width=width, height=height,
+                         split="val", seed=5)
+    k360 = make_kitti360_tree(root / "k360", num_frames=8, width=width,
+                              height=height)
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="1")
+
+    def run(name, sflow):
+        config = root / f"{name}.yaml"
+        config.write_text(SPATIAL_CLI_YAML.format(
+            sflow=sflow, cs=cs, k360=k360, height=height, width=width))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", str(SPATIAL_RANKS), "--master_port",
+             str(free_port()), "-m", "codeps_torch.scripts.adapt",
+             "--run_name", name, "--filename_config", str(config),
+             "--max_frames", str(SPATIAL_CLI_FRAMES), "--device", "cuda:0",
+             "--experiments_dir", str(root / "experiments"),
+             "--save_buffer_state", str(root / f"{name}_buffer.pkl")],
+            env=env, cwd=str(root), capture_output=True, text=True,
+            timeout=600)
+        return proc, time.perf_counter() - t0
+
+    proc, seconds = run("spatial", "false")
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    written = sorted(str(p.relative_to(root / "experiments"))
+                     for p in (root / "experiments").rglob("*")
+                     if p.is_file())
+    log = (root / "experiments" / "adapt_spatial" / "logs"
+           / "run.log").read_text()
+    flow, _ = run("flow", "true")
+    return {"seconds": seconds, "written": written,
+            "buffer_states": sorted(p.name for p in
+                                    root.glob("*_buffer.pkl")),
+            "stream_lines": log.count("Adaptation done"),
+            "val_lines": log.count("Target val"),
+            "flow_rc": flow.returncode,
+            "flow_raised": "NotImplementedError" in flow.stdout + flow.stderr,
+            "tail": proc.stdout[-1500:]}
+
+
 def main() -> int:
+    script_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a "
@@ -3076,7 +3643,6 @@ def main() -> int:
     flow_cfg = adapt_config(target_size, source_size)
     flow_cfg.model.make_sflow = flow_cfg.adapt.model.sflow = True
     host_flow = flow_modules(torch, flow_cfg, stream_modules)
-    del stream_modules
     assert tuple(host_flow.backbone_pose_sflow.encoder.conv1.weight.shape) \
         == (64, 8, 7, 7)
     batch = batch_to_device(adapt_batch(rng, target_size, source_size),
@@ -3440,7 +4006,223 @@ def main() -> int:
                    for n in ranks)
     print(f"phase 13: {time.perf_counter() - phase_start:.3f} s")
 
-    phase("14 result")
+    phase("14 spatial sharding")
+    phase_start = time.perf_counter()
+    # (a) to (c): SPATIAL_RANKS processes on this one card over gloo, from
+    # phase 7's weights
+    spatial_dir = ddp_dir.parent / "spatial_smoke"
+    spatial_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    try:
+        torch.save(stream_modules, spatial_dir / "modules.pt")
+        del stream_modules
+        torch_mp.spawn(spatial_smoke_rank, args=(SPATIAL_RANKS, free_port(),
+                                                 str(spatial_dir)),
+                       nprocs=SPATIAL_RANKS, join=True)
+        sranks = [json.loads((spatial_dir / f"rank{r}.json").read_text())
+                  for r in range(SPATIAL_RANKS)]
+        # (d) the CLI under torchrun, every rank on card 0
+        cli_numbers = spatial_cli(spatial_dir)
+    finally:
+        for path in sorted(spatial_dir.rglob("*"), reverse=True):
+            path.unlink() if path.is_file() else path.rmdir()
+        if spatial_dir.exists():
+            spatial_dir.rmdir()
+    lead_numbers = sranks[0]
+    ex = lead_numbers["exactness"]
+    exact = ex["exact"]
+    for r, numbers in enumerate(sranks):
+        # every rank holds the global losses
+        mine = numbers["exactness"]["exact"]
+        for part, lead_part in zip([mine["float64"], *mine["float32"]],
+                                   [exact["float64"], *exact["float32"]]):
+            assert part["metrics"] == lead_part["metrics"], r
+            bad = [k for k, v in part["metrics"].items()
+                   if not math.isfinite(v)]
+            assert not bad, (r, bad)
+        if r:
+            assert numbers["exactness"]["launches"] == 0, numbers
+            for part in numbers["stream"].values():
+                assert part["split"]["launches"] == 0
+                assert part["split"]["copies"] == 0
+                assert len(part["split"]["row_times_ms"][
+                    "step"]) == SPATIAL_FRAMES
+    f64 = exact["float64"]["against_one_process"]
+    f64_worst = max([*f64["loss_rel"].values(), *f64["grad_rel_l2"].values(),
+                     *f64["param_err"].values()])
+    f32 = exact["float32"]
+
+    ratios = {k: statistics.median(
+        part["to_float64"]["split"]["grad_rel_l2"][k]
+        / part["to_float64"]["one_process"]["grad_rel_l2"][k]
+        for part in f32) for k in f32[0]["to_float64"]["split"][
+            "grad_rel_l2"]}
+    split_ms = max(n["exactness"]["split_step_ms"][-1] for n in sranks)
+    split_steps = [max(n["exactness"]["split_step_ms"][i] for n in sranks)
+                   for i in range(1 + SPATIAL_TIMED_STEPS)]
+    collectives = {k: sum(v) for k, v in ex["collectives_ms"].items()}
+    st = lead_numbers["stream"]["bfloat16"]
+    split_stream, one_stream = st["split"], st["one_process"]
+    st64 = lead_numbers["stream"]["float64"]
+    follower = sranks[1]["stream"]["bfloat16"]["split"]
+    print(f"spatial sharding, {SPATIAL_RANKS} ranks sharing one card over "
+          f"gloo ({smi}), the published batch (target 1x{HEIGHT}x{WIDTH}, "
+          f"{NUM_REPLAY} replay, {NUM_SOURCE} source and {NUM_MIXUP} fused "
+          f"cut mixups at {SOURCE_HEIGHT}x{SOURCE_WIDTH}, ResNet-101):")
+    print(f"spatial (a) float64, {SPATIAL_RANKS} ranks against one process: "
+          f"losses rel {max(f64['loss_rel'].values()):.3g}; gradients by "
+          f"relative L2 " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      f64["grad_rel_l2"].items())
+          + f"; parameters after the step {max(f64['param_err'].values()):.3g}"
+          f"; replay features max |diff| {f64['features']:.3g}; sem_conf "
+          f"equal {f64['sem_conf_equal']}, panoptic map equal "
+          f"{f64['panoptic_equal']}; peak memory "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ex["peak_mib"].items())
+          + " MiB (rank 0)")
+    for index, part in enumerate(f32):
+        split_d = part["to_float64"]["split"]["grad_rel_l2"]
+        one_d = part["to_float64"]["one_process"]["grad_rel_l2"]
+        print(f"spatial (b) float32 (TF32 off), batch {index}: "
+              f"{SPATIAL_RANKS} ranks against one process: gradients "
+              + ", ".join(f"{k} {v:.3g}" for k, v in
+                          part["against_one_process"]["grad_rel_l2"].items())
+              + "; against the float64 step, row split / one process: "
+              + ", ".join(f"{k} {v:.3g} / {one_d[k]:.3g} "
+                          f"({v / one_d[k]:.3f})"
+                          for k, v in split_d.items()))
+    print("spatial (b) float32, batch 0, the one-process step run twice: "
+          "gradients " + ", ".join(
+              f"{k} {v:.3g}" for k, v in
+              f32[0]["one_process_again"]["grad_rel_l2"].items()))
+    print(f"spatial (b) float32: the median over {SPATIAL_F32_BATCHES} "
+          f"batches of the ratio of the distances from float64, row split "
+          f"/ one process: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+          + f" (bound {SPATIAL_F32_FACTOR})")
+    print(f"spatial step, bfloat16: row split (slowest rank) "
+          f"{[round(t, 3) for t in split_steps]} ms, one process "
+          f"{[round(t, 3) for t in ex['one_process_step_ms']]} ms (host "
+          f"clock, first is the warm-up); in an instrumented step "
+          f"(synchronized) the halo exchanges {collectives.get('halo_rows', 0):.3f} "
+          f"ms in {len(ex['collectives_ms'].get('halo_rows', []))} calls, "
+          f"the gathers {collectives.get('gather_rows', 0):.3f} ms in "
+          f"{len(ex['collectives_ms'].get('gather_rows', []))}, the gradient "
+          f"all-reduce {collectives.get('sum_gradients', 0):.3f} ms (rank 0)")
+    print(f"spatial (c) stream, {SPATIAL_FRAMES} frames, bfloat16: row split "
+          f"frame {split_stream['frame_ms']:.3f} ms (median after "
+          f"{WARMUP_FRAMES}; all "
+          f"{[round(t, 3) for t in split_stream['all_ms']]}), one process "
+          f"{one_stream['frame_ms']:.3f} ms (all "
+          f"{[round(t, 3) for t in one_stream['all_ms']]}); follower step "
+          + str([round(t, 3) for t in follower["row_times_ms"]["step"]])
+          + " ms; broadcast "
+          + str([round(t, 3) for t in split_stream["row_times_ms"][
+              "broadcast"]]) + " ms; gathers a frame (rank 0, synchronized) "
+          f"{sum(split_stream['gather_ms']) / SPATIAL_FRAMES:.3f} ms; peak "
+          f"memory rank 0 {split_stream['peak_mib']:.1f} MiB, rank 1 "
+          f"{follower['peak_mib']:.1f} MiB, one process "
+          f"{one_stream['peak_mib']:.1f} MiB")
+    for name, part in (("bfloat16", st), ("float64", st64)):
+        print(f"spatial (c) {name} meters, row split / one process: "
+              + ", ".join(f"{k} {part['split']['values'][k]:.6g} / "
+                          f"{part['one_process']['values'][k]:.6g}"
+                          for k in ("p_pq", "sem_miou", "d_abs_rel",
+                                    "loss"))
+              + f"; panoptic pixels that differ by frame "
+              f"{[round(v, 6) for v in part['panoptic_diff_share']]}; "
+              f"buffer ids equal "
+              f"{part['split']['ids'] == part['one_process']['ids']}; "
+              f"frame {part['split']['frame_ms']:.3f} / "
+              f"{part['one_process']['frame_ms']:.3f} ms")
+    print(f"spatial grouping launches: steps {ex['launches']} on rank 0, "
+          f"{sranks[1]['exactness']['launches']} on rank 1; streams "
+          f"{split_stream['launches']} + {st64['split']['launches']} on "
+          f"rank 0 in 2 x {SPATIAL_FRAMES} frames, "
+          f"{follower['launches']} on rank 1; 0 copies; kernel == plain on "
+          f"all {ex['calls'] + split_stream['calls'] + st64['split']['calls']}"
+          f" calls; shapes {ex['shapes']}")
+    print(f"spatial (d) CLI: torchrun --nproc_per_node {SPATIAL_RANKS} on "
+          f"{SPATIAL_CLI_SIZE[0]}x{SPATIAL_CLI_SIZE[1]} (ResNet-18, "
+          f"{SPATIAL_CLI_FRAMES} frames) exit 0 in {cli_numbers['seconds']:.3f}"
+          f" s; files {cli_numbers['written']}, buffer states "
+          f"{cli_numbers['buffer_states']}; make_sflow exit "
+          f"{cli_numbers['flow_rc']} (NotImplementedError "
+          f"{cli_numbers['flow_raised']})")
+    assert f64_worst <= SPATIAL_F64_BOUND, f64
+    assert f64["features"] <= SPATIAL_F64_BOUND, f64["features"]
+    assert f64["sem_conf_equal"] and f64["panoptic_equal"], f64
+    for name, ratio in ratios.items():
+        assert ratio <= SPATIAL_F32_FACTOR, (name, ratio)
+    # the buffer's choices in both; the meters and every panoptic map in
+    # float64: a slab's convolutions round otherwise than the whole
+    # frame's in bfloat16 and float32, and the adaptation steps carry the
+    # difference through the stream (bfloat16's printed above)
+    for part in (st, st64):
+        assert part["split"]["ids"] == part["one_process"]["ids"]
+        assert part["split"]["copies"] == 0
+        assert part["split"]["max_abs_err"] == 0
+    for key, tol in (("p_pq", PQ_TOL), ("sem_miou", MIOU_TOL),
+                     ("d_abs_rel", ABS_REL_TOL)):
+        assert abs(st64["split"]["values"][key]
+                   - st64["one_process"]["values"][key]) <= tol, key
+    assert not any(st64["panoptic_diff_share"]), st64["panoptic_diff_share"]
+    assert ex["copies"] == 0 and ex["max_abs_err"] == 0
+    assert cli_numbers["written"] == ["adapt_spatial/config.yaml",
+                                      "adapt_spatial/logs/run.log"], \
+        cli_numbers["written"]
+    assert cli_numbers["buffer_states"] == ["spatial_buffer.pkl"]
+    assert cli_numbers["stream_lines"] == cli_numbers["val_lines"] == 1
+    assert cli_numbers["flow_rc"] != 0 and cli_numbers["flow_raised"]
+    spatial_launches = {
+        "spatial_step": sum(n["exactness"]["launches"] for n in sranks),
+        "spatial_stream": sum(part["split"]["launches"] for n in sranks
+                              for part in n["stream"].values())}
+    spatial_copies = {
+        "spatial_step": sum(n["exactness"]["copies"] for n in sranks),
+        "spatial_stream": sum(part["split"]["copies"] for n in sranks
+                              for part in n["stream"].values())}
+    spatial_numbers = {
+        "card": smi, "ranks": SPATIAL_RANKS, "backend": "gloo",
+        "shared_card": True, "config": "cfg/adapt_cityscapes_kitti_360.yaml",
+        "exactness": {"float64": f64, "float32": f32, "ratios": ratios,
+                      "bounds": {"float64": SPATIAL_F64_BOUND,
+                                 "f32_factor": SPATIAL_F32_FACTOR},
+                      "peak_mib": ex["peak_mib"]},
+        "step_ms": {"split": split_steps,
+                    "one_process": ex["one_process_step_ms"],
+                    "collectives_ms": collectives,
+                    "collective_calls": {k: len(v) for k, v in
+                                         ex["collectives_ms"].items()}},
+        "stream": {
+            "split": {k: split_stream[k] for k in (
+                "frame_ms", "frame_min_ms", "frame_max_ms", "frames_per_s",
+                "all_ms", "peak_mib")},
+            "one_process": {k: one_stream[k] for k in (
+                "frame_ms", "frame_min_ms", "frame_max_ms", "frames_per_s",
+                "all_ms", "peak_mib")},
+            "follower_step_ms": follower["row_times_ms"]["step"],
+            "follower_peak_mib": follower["peak_mib"],
+            "broadcast_ms": split_stream["row_times_ms"]["broadcast"],
+            "gather_ms_per_frame": sum(split_stream["gather_ms"])
+            / SPATIAL_FRAMES,
+            "panoptic_diff_share": st["panoptic_diff_share"],
+            "meters": {name: {k: [part["split"]["values"][k],
+                                  part["one_process"]["values"][k]]
+                              for k in ("p_pq", "sem_miou", "d_abs_rel")}
+                       for name, part in (("bfloat16", st),
+                                          ("float64", st64))},
+            "float64_panoptic_diff_share": st64["panoptic_diff_share"],
+            "float64_frame_ms": [st64["split"]["frame_ms"],
+                                 st64["one_process"]["frame_ms"]]},
+        "cli": {k: cli_numbers[k] for k in ("seconds", "written", "flow_rc")},
+        "launches": spatial_launches, "copies": spatial_copies,
+        "seconds": {"exactness": [n["exactness_s"] for n in sranks],
+                    "stream": [n["stream_s"] for n in sranks]}}
+    spatial_err = max(ex["max_abs_err"], split_stream["max_abs_err"],
+                      st64["split"]["max_abs_err"])
+    print(f"phase 14: {time.perf_counter() - phase_start:.3f} s")
+
+    phase("15 result")
     print(json.dumps({"kernels": [{
         "name": "group_pixels", "route": "cuda",
         "source": "codeps_torch/csrc/grouping.cu",
@@ -3449,22 +4231,25 @@ def main() -> int:
                      + sum(cli_launches.values())
                      + sum(train_launches.values()) + host_launches
                      + sum(flow_launches.values())
-                     + sum(ddp_launches.values())),
+                     + sum(ddp_launches.values())
+                     + sum(spatial_launches.values())),
         "launches_by_path": {"serve": launches, "adapt": adapt_launches,
                              "stream": stream_launches,
                              **{f"cli_{k}": v
                                 for k, v in cli_launches.items()},
                              **train_launches, "host_mixup": host_launches,
-                             **flow_launches, **ddp_launches},
+                             **flow_launches, **ddp_launches,
+                             **spatial_launches},
         "copies_by_path": {"serve": copies, "adapt": adapt_copies,
                            "stream": stream_copies,
                            **{f"cli_{k}": v
                               for k, v in cli_copies.items()},
                            **train_copies, "host_mixup": host_copies,
-                           **flow_copies, **ddp_copies},
+                           **flow_copies, **ddp_copies,
+                           **spatial_copies},
         "exact": True,
         "max_abs_err": max(max_err, stream_err, cli_err, train_err,
-                           host_err, flow_err, ddp_err),
+                           host_err, flow_err, ddp_err, spatial_err),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "kernel_ms": kernel_ms, "bound_us": bound_ms * 1e3,
@@ -3502,6 +4287,10 @@ def main() -> int:
     print(json.dumps({"host_mixup_stream": host_mixup}))
     print(json.dumps({"flow": flow_numbers}))
     print(json.dumps({"ddp": ddp_numbers}))
+    print(json.dumps({"spatial": spatial_numbers}))
+    phase(None)
+    print(f"chip_smoke: total wall {time.perf_counter() - script_start:.3f} "
+          f"s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))
     return 0

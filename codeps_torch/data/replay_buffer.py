@@ -337,8 +337,9 @@ class ReplayBuffer:
                     raise FileNotFoundError(
                         "Rare-class source sampling needs the class "
                         "distribution (class_distribution.pkl next to the "
-                        "data; scripts/compute_class_distribution.py "
-                        f"writes it) for {source_data.path_base}.")
+                        "data; python -m codeps_torch.scripts."
+                        "compute_class_distribution writes it) for "
+                        f"{source_data.path_base}.")
                 self.source_samples_indices = rare_class_sample(
                     data, number_samples, self.buffer_seed)
             else:

@@ -2,13 +2,17 @@
 
 Counterpart of ``codeps_tpu/geometry/camera.py``. Images and depth maps
 are NCHW; pixel coordinates come back channel-last, (B, H, W, 2), the
-layout ``F.grid_sample`` takes for its grid.
+layout ``F.grid_sample`` takes for its grid. Inside a row split
+(``parallel/spatial.py``) a depth map is this rank's slab of rows, whose
+pixels keep their global row coordinate.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from codeps_torch.parallel import spatial
 
 
 def make_intrinsics(fx, fy, cx, cy) -> torch.Tensor:
@@ -47,7 +51,9 @@ def backproject(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
     _, _, height, width = depth.shape
     dtype, device = depth.dtype, depth.device
     u = torch.arange(width, dtype=dtype, device=device)[None, None, None, :]
-    v = torch.arange(height, dtype=dtype, device=device)[None, None, :, None]
+    v = torch.arange(spatial.row_offset(height),
+                     spatial.row_offset(height) + height, dtype=dtype,
+                     device=device)[None, None, :, None]
     fx, fy, cx, cy = _columns(intrinsics, dtype, 3)
     x3d = depth * (u - cx) / fx
     y3d = depth * (v - cy) / fy

@@ -3,7 +3,10 @@
 Counterpart of ``codeps_tpu/geometry/warp.py`` (the reference's
 ``ImageWarper``), NCHW: backproject the target pixels with their depth,
 move them into the neighbor camera, reproject, sample with border
-padding and ``align_corners=True``.
+padding and ``align_corners=True``. Inside a row split
+(``parallel/spatial.py``) the depth map and motion are this rank's slab
+of rows and the neighbour frame is whole: its rows are sampled wherever
+the slab's pixels land.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 from codeps_torch.geometry import camera as cam
 from codeps_torch.geometry import pose as pose_lib
 from codeps_torch.ops.grid_sample import grid_sample
+from codeps_torch.parallel import spatial
 
 
 def warp_coordinates(intrinsics: torch.Tensor, depth: torch.Tensor,
@@ -28,7 +32,7 @@ def warp_coordinates(intrinsics: torch.Tensor, depth: torch.Tensor,
         points.
       object_motion: optional (B, 3, H, W) additive scene flow.
     """
-    _, _, height, width = depth.shape
+    height, width = spatial.global_rows(depth.shape[-2]), depth.shape[-1]
     points = cam.backproject(depth, intrinsics)
     points = pose_lib.transform_points(transform, points)
     if object_motion is not None:

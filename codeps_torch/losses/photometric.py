@@ -10,6 +10,14 @@ means stay float32.
 The automask's identity tie-break noise (Monodepth2, 1e-5 normals) is
 drawn from a ``torch.Generator``, or taken from an injected ``noise``
 callable that returns a tensor of the shape it is asked for.
+
+Inside a row split (``parallel/spatial.py``) ``reconstruction_loss``
+takes the frames whole and the depth (and motion) as this rank's slab of
+rows: each scale's images and the gathered depth are resized whole and
+cut to this rank's rows, so those rows equal the one-process rows bit for
+bit; the SSIM pools read the neighbouring slabs' rows, the warp samples
+the whole neighbour frames, the noise is this rank's rows of the whole
+draw, and the loss is this rank's share.
 """
 
 from __future__ import annotations
@@ -21,7 +29,9 @@ import torch.nn.functional as F
 
 from codeps_torch.geometry.camera import scale_intrinsics_to_size
 from codeps_torch.geometry.warp import warp_image
+from codeps_torch.models.precision import loss_dtype, widened
 from codeps_torch.ops.resize import resize_bilinear_nchw, resize_nearest_nchw
+from codeps_torch.parallel import spatial
 
 _SSIM_C1 = 0.01 ** 2
 _SSIM_C2 = 0.03 ** 2
@@ -31,7 +41,17 @@ NoiseFn = Callable[[tuple], torch.Tensor]
 
 def _avg_pool_3x3_reflect(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 average pool after a 1-pixel reflection pad."""
+    if spatial.active():
+        return F.avg_pool2d(spatial.halo_rows(
+            F.pad(x, (1, 1, 0, 0), mode="reflect"), 1, 1, "reflect"), 3, 1)
     return F.avg_pool2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), 3, 1)
+
+
+def _rows_at(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """This rank's rows of the whole ``x`` resized to ``size``."""
+    with spatial.whole():
+        x = resize_bilinear_nchw(x, size)
+    return spatial.rows_of(x)
 
 
 def ssim_target_stats(target_img: torch.Tensor
@@ -101,7 +121,8 @@ def reconstruction_loss(intrinsics: torch.Tensor,
       generator: source of the identity noise when ``noise`` is None.
       noise: callable ``shape -> tensor`` giving the (B, 2, h, w) identity
         noise of each scale in turn, in place of the generator.
-      dtype: element type of the image-space math. The warp samples in
+      dtype: element type of the image-space math (float64 for float64
+        images). The warp samples in
         float32 (its taps are the image's values) and its result comes
         back to ``dtype``; the errors go to float32 before the automask,
         whose 1e-5 noise bfloat16 could not resolve.
@@ -110,42 +131,50 @@ def reconstruction_loss(intrinsics: torch.Tensor,
       scalar float32 loss, or (B,) with ``per_sample``.
     """
     batch, _, height, width = images[0].shape
+    dtype = loss_dtype(dtype, images[0])
     target = images[0].to(dtype)
+    depth_map = spatial.gather_rows(depth_map)
+    if object_motion_maps is not None:
+        object_motion_maps = [spatial.gather_rows(m)
+                              for m in object_motion_maps]
     total = torch.zeros((batch,) if per_sample else (),
                         device=images[0].device)
     for s in range(num_scales):
         size = (height // 2 ** s, width // 2 ** s)
         intr_s = scale_intrinsics_to_size(intrinsics, (height, width), size)
-        target_s = resize_bilinear_nchw(target, size)
-        depth_s = resize_bilinear_nchw(depth_map, size)
+        target_s = _rows_at(target, size)
+        depth_s = _rows_at(depth_map, size)
         tstats = ssim_target_stats(target_s)
 
         recon_losses, frames_s = [], []
         for i, frame in enumerate(images[1:]):
-            frame_s = resize_bilinear_nchw(frame.to(dtype), size)
-            frames_s.append(frame_s)
+            with spatial.whole():
+                frame_s = resize_bilinear_nchw(frame.to(dtype), size)
+            frames_s.append(spatial.rows_of(frame_s))
             motion_s = None
             if object_motion_maps is not None:
-                motion_s = resize_bilinear_nchw(object_motion_maps[i], size)
-            pred = warp_image(intr_s, frame_s.float(), depth_s, poses[i],
+                motion_s = _rows_at(object_motion_maps[i], size)
+            pred = warp_image(intr_s, widened(frame_s), depth_s, poses[i],
                               object_motion=motion_s)
-            recon_losses.append(photometric_error(pred.to(dtype), target_s,
-                                                  alpha, tstats).float())
-        identity = torch.cat([photometric_error(f, target_s, alpha, tstats)
-                              for f in frames_s], dim=1).float()
+            recon_losses.append(widened(photometric_error(
+                pred.to(dtype), target_s, alpha, tstats)))
+        identity = widened(torch.cat([
+            photometric_error(f, target_s, alpha, tstats)
+            for f in frames_s], dim=1))
         if identity_noise_scale:
             if noise is not None:
-                draw = noise(tuple(identity.shape)).to(identity.device)
+                draw = spatial.rows_noise(noise)(tuple(identity.shape)).to(
+                    identity.device)
             else:
-                draw = torch.randn(identity.shape, generator=generator,
-                                   device=identity.device)
+                draw = spatial.normal_rows(identity.shape, generator,
+                                           identity.device)
             identity = identity + draw * identity_noise_scale
         combined = torch.cat(recon_losses + [identity], dim=1)
         per_pixel = torch.amin(combined, dim=1)
         if per_sample:
-            total = total + per_pixel.mean(dim=(1, 2)) / 2 ** s
+            total = total + spatial.mean(per_pixel, (1, 2)) / 2 ** s
         else:
-            total = total + per_pixel.mean() / 2 ** s
+            total = total + spatial.mean(per_pixel) / 2 ** s
     return total / num_scales
 
 

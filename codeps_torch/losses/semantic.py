@@ -5,6 +5,10 @@ Counterpart of ``codeps_tpu/losses/semantic.py:24-193`` (the reference's
 SemanticLoss and SemanticConsistencyLoss), NCHW. The reference's quirk is
 kept: the semantic head returns softmax probabilities and the CE applies
 ``log_softmax`` to them again.
+
+Inside a row split (``parallel/spatial.py``) ``semantic_loss`` takes this
+rank's slab of rows and returns its share of the global value: the top-k
+runs over every rank's pixels.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ import torch
 
 from codeps_torch import parallel
 from codeps_torch.geometry.warp import warp_image
+from codeps_torch.models.precision import loss_dtype, widened
+from codeps_torch.parallel import spatial
 from codeps_torch.ops.topk import top_k_mean
 
 
@@ -74,10 +80,12 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
       class_weights: one weight per class channel.
       ignore_labels: class channels to drop entirely.
       dtype: element type of the per-pixel log-softmax and weighting (the
-        compute dtype of the config); None keeps the prediction's. The
-        top-k mean accumulates in float32 either way.
+        compute dtype of the config; float64 for a float64 prediction);
+        None keeps the prediction's. The top-k mean accumulates in float32
+        (float64 for float64 losses).
     """
     if dtype is not None:
+        dtype = loss_dtype(dtype, prediction)
         prediction = prediction.to(dtype)
         pixel_weights = pixel_weights.to(dtype)
     if ignore_labels:
@@ -92,8 +100,9 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
     if top_k_percent_pixels < 1.0:
         flat = loss.reshape(-1)
         pixels = flat.shape[0] * parallel.group_size()
-        return top_k_mean(flat, int(top_k_percent_pixels * pixels))
-    return loss.to(torch.float32).mean()
+        return spatial.share(top_k_mean(flat,
+                                        int(top_k_percent_pixels * pixels)))
+    return spatial.mean(widened(loss))
 
 
 def semantic_consistency_loss(

@@ -19,9 +19,14 @@ these plain forms too:
   - the flow head pads every conv by reflection and upsamples bilinearly
     with ``align_corners=True``, unlike the depth decoder.
 
+Convs and reflection pads are the row-split layers of
+``parallel/spatial.py`` (the flow head's own reflection, ``_reflect_pad``,
+is not: the flow path does not run row-split).
+
 Each head runs its body in its ``compute_dtype`` (``models/precision.py``)
-and returns float32, as the JAX heads cast their full-resolution outputs;
-the pose head builds its transform from float32 parameters.
+and returns float32 (float64 for float64 modules, ``precision.widened``),
+as the JAX heads cast their full-resolution outputs; the pose head builds
+its transform from float32 parameters.
 
 Parameter names follow the reference checkpoints (``upconvs_1.4.0.weight``,
 ``semconv_guda.weight``, ``net.3.bias`` of the pose head,
@@ -40,8 +45,9 @@ from torch import nn
 
 from codeps_torch import parallel
 from codeps_torch.geometry.pose import transformation_from_parameters
-from codeps_torch.models.precision import ComputeDtype
+from codeps_torch.models.precision import ComputeDtype, widened
 from codeps_torch.models.resnet import BatchNorm2d
+from codeps_torch.parallel.spatial import Conv2d, ReflectionPad2d
 from codeps_torch.ops.resize import (resize_bilinear_nchw,
                                      upsample_nearest_2x_nchw)
 
@@ -50,7 +56,7 @@ _DEC_CHANNELS = (16, 32, 64, 128, 256)
 
 def _conv_elu(in_ch: int, out_ch: int, padding: int = 1) -> nn.Sequential:
     """3x3 conv + ELU (the reference's ``upconvs_j.i``), zero-padded."""
-    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 3, padding=padding),
+    return nn.Sequential(Conv2d(in_ch, out_ch, 3, padding=padding),
                          nn.ELU())
 
 
@@ -98,7 +104,7 @@ class DepthHead(ComputeDtype, nn.Module):
         self.upconvs_0, self.upconvs_1 = _decoder_convs(num_ch_enc,
                                                         use_skips)
         self.dispconvs = nn.ModuleList([nn.Sequential(
-            nn.ReflectionPad2d(1), nn.Conv2d(_DEC_CHANNELS[0], 1, 3))])
+            ReflectionPad2d(1), Conv2d(_DEC_CHANNELS[0], 1, 3))])
 
     def forward(self, feats: Sequence[torch.Tensor]):
         x = feats[-1]
@@ -109,7 +115,7 @@ class DepthHead(ComputeDtype, nn.Module):
                     x = torch.cat([x, feats[i - 1]], dim=1)
                 x = self.upconvs_1[i](x)
             x = self.dispconvs[0](x)
-        disp = torch.sigmoid(x.float())
+        disp = torch.sigmoid(widened(x))
         return disp_to_depth(disp), disp
 
 
@@ -126,12 +132,12 @@ class SemanticHead(ComputeDtype, nn.Module):
         self.upconvs_0, self.upconvs_1 = _decoder_convs(num_ch_enc,
                                                         use_skips)
         if use_guda_fusion:
-            self.semconv_guda = nn.Conv2d(sum(_DEC_CHANNELS[:4]),
+            self.semconv_guda = Conv2d(sum(_DEC_CHANNELS[:4]),
                                           num_classes, 3, padding=1)
         else:
             self.semconv = nn.Sequential(
-                nn.ReflectionPad2d(1),
-                nn.Conv2d(_DEC_CHANNELS[0], num_classes, 3))
+                ReflectionPad2d(1),
+                Conv2d(_DEC_CHANNELS[0], num_classes, 3))
 
     def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
         x = feats[-1]
@@ -151,7 +157,7 @@ class SemanticHead(ComputeDtype, nn.Module):
                 logits = self.semconv_guda(fused)
             else:
                 logits = self.semconv(x)
-        return torch.softmax(logits.float(), dim=1)
+        return torch.softmax(widened(logits), dim=1)
 
 
 class PoseHead(ComputeDtype, nn.Module):
@@ -167,10 +173,10 @@ class PoseHead(ComputeDtype, nn.Module):
                  num_frames_to_predict_for: int = 2):
         super().__init__()
         self.net = nn.ModuleList([
-            nn.Conv2d(num_ch_enc[-1], 256, 1),
-            nn.Conv2d(256, 256, 3, padding=1),
-            nn.Conv2d(256, 256, 3, padding=1),
-            nn.Conv2d(256, 6 * num_frames_to_predict_for, 1)])
+            Conv2d(num_ch_enc[-1], 256, 1),
+            Conv2d(256, 256, 3, padding=1),
+            Conv2d(256, 256, 3, padding=1),
+            Conv2d(256, 6 * num_frames_to_predict_for, 1)])
 
     def forward(self, feats: Sequence[torch.Tensor],
                 invert_pose: bool = False) -> torch.Tensor:
@@ -179,7 +185,7 @@ class PoseHead(ComputeDtype, nn.Module):
             for conv in self.net[:-1]:
                 x = torch.relu(conv(x))
             x = self.net[-1](x)
-        out = 0.01 * x.float().mean(dim=(2, 3))
+        out = 0.01 * widened(x).mean(dim=(2, 3))
         return transformation_from_parameters(out[:, :3], out[:, 3:6],
                                               invert=invert_pose)
 
@@ -223,7 +229,7 @@ class FlowHead(ComputeDtype, nn.Module):
                     x = torch.cat([x, feats[i - 1]], dim=1)
                     x = self.upconvs_1[str(i)](_reflect_pad(x))
             x = self.translation_layer(_reflect_pad(x))
-        flow = 0.001 * x.float()
+        flow = 0.001 * widened(x)
         if self.auto_mask:
             norm = torch.sqrt((flow * flow).sum(dim=1, keepdim=True))
             mean = parallel.mean_over_ranks(norm.detach().mean())
@@ -234,9 +240,9 @@ class FlowHead(ComputeDtype, nn.Module):
 def _depthwise_separable(in_ch: int, out_ch: int) -> nn.Sequential:
     """5x5 depthwise + BN + ReLU + 1x1 pointwise + BN + ReLU."""
     return nn.Sequential(
-        nn.Conv2d(in_ch, in_ch, 5, padding=2, groups=in_ch, bias=False),
+        Conv2d(in_ch, in_ch, 5, padding=2, groups=in_ch, bias=False),
         BatchNorm2d(in_ch), nn.ReLU(inplace=True),
-        nn.Conv2d(in_ch, out_ch, 1, bias=False),
+        Conv2d(in_ch, out_ch, 1, bias=False),
         BatchNorm2d(out_ch), nn.ReLU(inplace=True))
 
 
@@ -249,12 +255,12 @@ class _InstanceDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int]):
         super().__init__()
         net = {"conv": nn.Sequential(
-            nn.Conv2d(num_ch_enc[-1], self.NUM_CH_DEC[0], 1, bias=False))}
+            Conv2d(num_ch_enc[-1], self.NUM_CH_DEC[0], 1, bias=False))}
         feat_ch = self.NUM_CH_DEC[0]
         for i in range(3):
             proj = self.NUM_CH_PROJECT[i]
             net[f"project_{i}"] = nn.Sequential(
-                nn.Conv2d(num_ch_enc[-(i + 2)], proj, 1, bias=False),
+                Conv2d(num_ch_enc[-(i + 2)], proj, 1, bias=False),
                 BatchNorm2d(proj), nn.ReLU(inplace=True))
             net[f"fuse_{i}"] = _depthwise_separable(feat_ch + proj,
                                                     self.NUM_CH_DEC[i])
@@ -283,7 +289,7 @@ class _InstanceSubHead(nn.Module):
         super().__init__()
         self.net = nn.ModuleDict({
             "depth_conv": _depthwise_separable(in_ch, 32),
-            "conv": nn.Conv2d(32, num_outputs, 1)})
+            "conv": Conv2d(32, num_outputs, 1)})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.net["depth_conv"](_upsample_2x_align(x))
@@ -313,5 +319,5 @@ class InstanceHead(ComputeDtype, nn.Module):
                             else self.thing_mask_head(x))
         thing_mask = None
         if thing_logits is not None:
-            thing_mask = torch.softmax(thing_logits.float(), dim=1)
-        return center.float(), offset.float(), thing_mask
+            thing_mask = torch.softmax(widened(thing_logits), dim=1)
+        return widened(center), widened(offset), thing_mask

@@ -7,6 +7,11 @@ convolutions of the encoders and heads run in bfloat16 while parameters,
 BatchNorm statistics, optimizer state and every head's full-resolution
 output stay float32; ``"float32"`` is the exact mode. A module runs its
 body under ``torch.autocast`` in its own ``compute_dtype``.
+
+Modules and inputs cast to float64 (``.double()``, the tests' exactness
+mode) stay float64 throughout: where the float32 paths widen an output or
+a loss's arithmetic to float32 (``widened``, ``loss_dtype``), float64 is
+kept.
 """
 
 from __future__ import annotations
@@ -36,3 +41,14 @@ class ComputeDtype:
         in bfloat16, off (exact float32) otherwise."""
         return torch.autocast(x.device.type, dtype=torch.bfloat16,
                               enabled=self.compute_dtype == torch.bfloat16)
+
+
+def widened(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 if it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def loss_dtype(dtype: torch.dtype, x: torch.Tensor) -> torch.dtype:
+    """A loss's arithmetic type: ``dtype`` (the config's compute dtype),
+    or float64 for a float64 ``x``."""
+    return torch.float64 if x.dtype == torch.float64 else dtype

@@ -21,7 +21,9 @@ running statistics as they are: the JAX adaptation step discards Flax's
 ``batch_stats`` updates.
 
 The encoder runs in its ``compute_dtype`` (``models/precision.py``); its
-feature maps come out in that dtype.
+feature maps come out in that dtype. Its convs and max-pool are the
+row-split layers of ``parallel/spatial.py``: inside a row split they run
+on this rank's slab with their neighbours' rows as a halo.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from torch import nn
 
 from codeps_torch import parallel
 from codeps_torch.models.precision import ComputeDtype
+from codeps_torch.parallel.spatial import Conv2d, MaxPool2d
 
 _STAGES = {
     18: ("basic", (2, 2, 2, 2)),
@@ -145,13 +148,20 @@ class BatchNorm2d(nn.BatchNorm2d):
     Inside a process group of several ranks (``parallel/dist.py``) train
     mode takes the statistics of the global batch, for the output, the
     running statistics and the backward, as the JAX package's sharded
-    step does (``codeps_tpu/tasks/train.py:8-12``); a group of one takes
+    step does (``codeps_tpu/tasks/train.py:8-12``), also after
+    ``keep_running_stats`` (the global batch of a row split,
+    ``parallel/spatial.py``, is every rank's rows); a group of one takes
     the single-process path."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and self.track_running_stats):
-            return super().forward(x)
         global_batch = parallel.group_size() > 1
+        if not self.training or not (self.track_running_stats
+                                     or global_batch):
+            return super().forward(x)
+        if not self.track_running_stats:
+            # train mode after keep_running_stats, over the global batch
+            fn = _GlobalBatchNormCuda if x.is_cuda else _GlobalBatchNorm
+            return fn.apply(x, self.weight, self.bias, self.eps)[0]
         if global_batch:
             fn = _GlobalBatchNormCuda if x.is_cuda else _GlobalBatchNorm
             out, mean, var = fn.apply(x, self.weight, self.bias, self.eps)
@@ -178,9 +188,9 @@ class BasicBlock(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: nn.Module | None = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 3, stride, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
@@ -198,12 +208,12 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: nn.Module | None = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.conv1 = Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
         # torchvision v1.5 puts the stride on the 3x3 conv.
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(planes, planes, 3, stride, 1, bias=False)
         self.bn2 = BatchNorm2d(planes)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.conv3 = Conv2d(planes, planes * 4, 1, bias=False)
         self.bn3 = BatchNorm2d(planes * 4)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
@@ -223,10 +233,10 @@ class _Trunk(nn.Module):
         super().__init__()
         kind, stage_sizes = _STAGES[num_layers]
         block = BasicBlock if kind == "basic" else Bottleneck
-        self.conv1 = nn.Conv2d(in_channels, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
-        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        self.maxpool = MaxPool2d(3, 2, 1)
         inplanes = 64
         for stage, count in enumerate(stage_sizes):
             planes = 64 * 2 ** stage
@@ -235,7 +245,7 @@ class _Trunk(nn.Module):
             downsample = None
             if stride != 1 or inplanes != out_ch:
                 downsample = nn.Sequential(
-                    nn.Conv2d(inplanes, out_ch, 1, stride, bias=False),
+                    Conv2d(inplanes, out_ch, 1, stride, bias=False),
                     BatchNorm2d(out_ch))
             blocks = [block(inplanes, planes, stride, downsample)]
             blocks += [block(out_ch, planes) for _ in range(count - 1)]

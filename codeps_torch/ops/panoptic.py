@@ -211,7 +211,10 @@ def panoptic_fusion_batch(semantic_probs: torch.Tensor,
 
     centers = find_instance_centers_batch(center[..., 0], threshold,
                                           nms_kernel, top_k)
-    raw_instance = group_pixels(centers.yx, centers.valid, offsets)
+    # the grouping reads float32 offsets (float64 ones of float64
+    # modules are cast, their NCHW planes kept)
+    raw_instance = group_pixels(centers.yx, centers.valid,
+                                offsets.to(torch.float32))
     if thing_mask is not None:
         if thing_mask.ndim == 4:
             thing_mask = thing_mask.argmax(dim=-1)

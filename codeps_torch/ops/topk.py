@@ -30,22 +30,24 @@ def kth_largest(values: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def global_kth_largest(mag: torch.Tensor, k: int) -> torch.Tensor:
-    """k-th largest (1-based) float32 value of the union of every rank's
-    non-negative 1-D ``mag``, found bit by bit from the top: the bit
-    patterns of non-negative floats order as their values, and t keeps a
-    bit when at least k entries of all ranks lie at or above it. 31
-    all-reduces of one count, which stay on the device."""
-    bits = mag.contiguous().view(torch.int32)
-    t = torch.zeros((), dtype=torch.int32, device=mag.device)
-    for bit in range(30, -1, -1):
+    """k-th largest (1-based) float32 (or float64) value of the union of
+    every rank's non-negative 1-D ``mag``, found bit by bit from the top:
+    the bit patterns of non-negative floats order as their values, and t
+    keeps a bit when at least k entries of all ranks lie at or above it.
+    31 (63) all-reduces of one count, which stay on the device."""
+    ints = torch.int64 if mag.dtype == torch.float64 else torch.int32
+    bits = mag.contiguous().view(ints)
+    t = torch.zeros((), dtype=ints, device=mag.device)
+    for bit in range(bits.element_size() * 8 - 2, -1, -1):
         candidate = t | (1 << bit)
         above = parallel.all_reduce((bits >= candidate).sum())
         t = torch.where(above >= k, candidate, t)
-    return t.view(torch.float32)
+    return t.view(mag.dtype)
 
 
 def top_k_mean(flat: torch.Tensor, k: int) -> torch.Tensor:
-    """float32 mean of the k largest entries of a non-negative 1-D tensor,
+    """float32 (float64 for float64 entries) mean of the k largest entries
+    of a non-negative 1-D tensor,
     by the JAX package's threshold rule (``topk.py:80-107``): with t the
     k-th largest, ``(sum(v > t) + (k - count(v > t)) * t) / k``.
 
@@ -60,7 +62,7 @@ def top_k_mean(flat: torch.Tensor, k: int) -> torch.Tensor:
     rank gets the global value; the gradient reaches each rank's entries
     through the summed sums (``parallel/dist.py`` on its scale).
     """
-    x32 = flat.to(torch.float32)
+    x32 = flat.to(torch.promote_types(flat.dtype, torch.float32))
     mag = x32.detach().abs()
     if parallel.group_size() > 1:
         t = global_kth_largest(mag, k)

@@ -247,6 +247,17 @@ def average_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
     one all-reduce of the flattened gradients, so that every rank takes
     the same optimizer step. Parameters without a gradient (the same on
     every rank: the graph is the same) are left out."""
+    _reduce_gradients(parameters, average=True)
+
+
+def sum_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
+    """Replaces each parameter's gradient by its sum over the ranks, in one
+    all-reduce of the flattened gradients: the gradient of the sum of the
+    ranks' losses (the row split's shares, ``parallel/spatial.py``)."""
+    _reduce_gradients(parameters, average=False)
+
+
+def _reduce_gradients(parameters, average: bool) -> None:
     if not active():
         return
     grads = [p.grad for p in parameters if p.grad is not None]
@@ -254,7 +265,8 @@ def average_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
     dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    if average:
+        flat /= dist.get_world_size()
     offset = 0
     for grad in grads:
         grad.copy_(flat[offset:offset + grad.numel()].view_as(grad))

@@ -12,10 +12,21 @@ from files and writes ``config.yaml``; ``run_adaptation`` does everything
 after that on datasets it is handed, so in-memory datasets run the same
 path.
 
+With ``tpu.spatial_shard: true`` under ``torch.distributed.run`` each
+frame's step is split by image rows over the N ranks
+(``parallel/spatial.py``): rank 0 streams and writes (the run directory,
+``config.yaml``, the logs, the buffer state, wandb), the other ranks
+follow its steps; validation runs over every rank (``tasks/validate.py``).
+Several ranks without ``tpu.spatial_shard`` raise: the stream adapts one
+frame at a time.
+
 Example:
     python -m codeps_torch.scripts.adapt --run_name a1 \
         --filename_config cfg/adapt_cityscapes_kitti_360.yaml \
         --checkpoint /path/to/pretrain.pth
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m codeps_torch.scripts.adapt --run_name a4 \
+        --filename_config spatial.yaml --checkpoint /path/to/pretrain.pth
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 
+from codeps_torch import parallel
 from codeps_torch.data.loader import DataLoader
 from codeps_torch.data.replay_buffer import ReplayBuffer
 from codeps_torch.device import resolve_device
@@ -133,9 +145,16 @@ def run_adaptation(cfg, target, val_target, source, source_val, *,
     previous domain's buffer, ``save_buffer_state`` writes this one's.
 
     Returns ``{"meters": the stream's meters, "target_val": metrics,
-    "source_val": metrics}`` (None for an empty split).
+    "source_val": metrics}`` (None for an empty split). In a process group
+    of several ranks (``tpu.spatial_shard``) rank 0's meters hold the
+    stream, the other ranks' are empty.
     """
     device = resolve_device(device)
+    if parallel.world_size() > 1 and not cfg.tpu.spatial_shard:
+        raise ValueError(
+            f"adaptation over {parallel.world_size()} ranks splits each "
+            "frame's rows and needs tpu.spatial_shard: true")
+    lead = parallel.is_lead()
     wandb_logger = wandb_logger or WandbLogger()
     if cfg.adapt.mode == "off":
         log_info("WARNING: disabled adaptation")
@@ -144,7 +163,7 @@ def run_adaptation(cfg, target, val_target, source, source_val, *,
     replay_buffer = ReplayBuffer(target, cfg.adapt, mode="train")
     replay_buffer.initialize_source_buffer(
         source, cfg.adapt.replay_buffer.source_size)
-    if buffer_state:
+    if buffer_state and lead:
         # the previous domain's dataset travels in the state and may be of
         # another type (a KITTI-360 buffer in a SemKITTI-DVPS stream)
         replay_buffer.load_state(path=buffer_state)
@@ -167,6 +186,29 @@ def run_adaptation(cfg, target, val_target, source, source_val, *,
 
     # ---------------- the stream
     meters = runner.run(max_frames=max_frames)
+    if lead:
+        _log_stream(cfg, runner, meters, wandb_logger)
+    if save_buffer_state and lead:
+        replay_buffer.save_state(save_buffer_state)
+        log_info("Saved buffer state to %s", save_buffer_state)
+    parallel.barrier()
+
+    # ---------------- the adapted EMA teacher on the held-out target and
+    # on the source (adapt_codeps.py:449-458)
+    teacher = runner.state.teacher
+    target_val = _validate(
+        cfg, teacher, ReplayBuffer(val_target, cfg.adapt, mode="val"),
+        cfg.dataset.offsets, runner, runner.ignore_classes, max_frames,
+        "Target val")
+    source_val = _validate(cfg, teacher, source_val,
+                           cfg.adapt.source_dataset.offsets, runner, (),
+                           max_frames, "Source val (forgetting)")
+    return {"meters": meters, "target_val": target_val,
+            "source_val": source_val}
+
+
+def _log_stream(cfg, runner, meters, wandb_logger) -> None:
+    """The stream's rate and final metrics to the log and wandb."""
     times = runner.step_times[3:] or runner.step_times
     if times:
         log_info("Adaptation done: %.2f steps/s (mean over %d frames)",
@@ -188,47 +230,34 @@ def run_adaptation(cfg, target, val_target, source, source_val, *,
             cfg.dataset.remove_classes, cfg.dataset.label_mode, step=steps)
     wandb_logger.log_depth_per_class(scalars, cfg.dataset.remove_classes,
                                      cfg.dataset.label_mode, step=steps)
-    if save_buffer_state:
-        replay_buffer.save_state(save_buffer_state)
-        log_info("Saved buffer state to %s", save_buffer_state)
-
-    # ---------------- the adapted EMA teacher on the held-out target and
-    # on the source (adapt_codeps.py:449-458)
-    teacher = runner.state.teacher
-    target_val = _validate(
-        cfg, teacher, ReplayBuffer(val_target, cfg.adapt, mode="val"),
-        cfg.dataset.offsets, runner, runner.ignore_classes, max_frames,
-        "Target val")
-    source_val = _validate(cfg, teacher, source_val,
-                           cfg.adapt.source_dataset.offsets, runner, (),
-                           max_frames, "Source val (forgetting)")
-    return {"meters": meters, "target_val": target_val,
-            "source_val": source_val}
 
 
 def main(argv=None) -> Dict[str, Any]:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    resolve_device(args.device)
     np.random.seed(args.seed)
     from codeps_torch.config import gen_config
 
     cfg = gen_config(args.filename_config, adapt=True)
     run_dir = Path(args.experiments_dir) / f"adapt_{args.run_name}"
-    run_dir.mkdir(parents=True, exist_ok=True)
-    (run_dir / "config.yaml").write_text(cfg.dump())
-    init_logging(str(run_dir / "logs"), debug=args.debug)
-    wandb_logger = WandbLogger(project=args.wandb_project,
-                               entity=args.wandb_entity,
-                               run_name=args.run_name, enabled=args.wandb,
-                               config=cfg.to_dict())
-    result = run_adaptation(
-        cfg, *read_datasets(cfg), seed=args.seed,
-        checkpoints=args.checkpoint, max_frames=args.max_frames,
-        buffer_state=args.buffer_state,
-        save_buffer_state=args.save_buffer_state, device=device,
-        wandb_logger=wandb_logger)
-    wandb_logger.finish()
-    log_info("End of adaptation script!")
+    with parallel.process_group(args.device) as device:
+        if parallel.is_lead():
+            run_dir.mkdir(parents=True, exist_ok=True)
+            (run_dir / "config.yaml").write_text(cfg.dump())
+        parallel.barrier()
+        init_logging(str(run_dir / "logs"), debug=args.debug)
+        wandb_logger = WandbLogger(project=args.wandb_project,
+                                   entity=args.wandb_entity,
+                                   run_name=args.run_name,
+                                   enabled=args.wandb, config=cfg.to_dict())
+        result = run_adaptation(
+            cfg, *read_datasets(cfg), seed=args.seed,
+            checkpoints=args.checkpoint, max_frames=args.max_frames,
+            buffer_state=args.buffer_state,
+            save_buffer_state=args.save_buffer_state, device=device,
+            wandb_logger=wandb_logger)
+        wandb_logger.finish()
+        log_info("End of adaptation script!")
     return result
 
 

@@ -44,6 +44,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from codeps_torch import parallel
 from codeps_torch.evaluation.depth_metrics import (
     compute_depth_metrics, compute_depth_metrics_per_class)
 from codeps_torch.evaluation.semantic_metrics import compute_confusion_matrix
@@ -57,6 +58,7 @@ from codeps_torch.models.precision import compute_dtype
 from codeps_torch.ops.grid_sample import grid_sample_pair_pre
 from codeps_torch.ops.normalize import maybe_normalize
 from codeps_torch.ops.panoptic import panoptic_fusion_batch
+from codeps_torch.parallel import spatial
 from codeps_torch.tasks.forward import (apply_encoder, depth_forward,
                                         encode_frames)
 from codeps_torch.tasks.optim import set_learning_rate
@@ -89,6 +91,12 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
     ``semantic`` and ``semantic_eval``. ``feats`` (the encoder's NCHW
     pyramid), ``sem_probs`` and ``depth`` (NCHW) stand in for forwards
     already run. Results are NHWC, as the JAX facade's.
+
+    Inside a row split (``parallel/spatial.py``) the forwards run on this
+    rank's rows (``feats``, ``sem_probs`` and ``depth`` are its slabs),
+    their maps are gathered whole, and rank 0 alone scores them and fuses
+    the panoptic map, with the grouping kernel; the other ranks return
+    ``(None, None)``.
     """
     use_gt_scale = cfg.eval.depth.use_gt_scale
     depth_ranges = tuple(cfg.eval.depth.depth_ranges)
@@ -96,19 +104,30 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
     mean = tuple(cfg.dataset.normalization.rgb_mean)
     std = tuple(cfg.dataset.normalization.rgb_std)
 
-    @torch.no_grad()
-    def eval_step(modules, batch, feats=None, sem_probs=None, depth=None):
+    def predict(modules, batch, feats, sem_probs, depth):
+        """The heads' NCHW maps of this rank's rows."""
         if feats is None:
             image = (batch["frames"][:, 0] if "frames" in batch
                      else batch["image"])
-            feats = apply_encoder(modules.backbone_po_depth,
-                                  maybe_normalize(image, mean, std))
+            feats = apply_encoder(modules.backbone_po_depth, maybe_normalize(
+                spatial.rows_of(image, axis=1), mean, std))
+        maps: Dict[str, Any] = {}
+        if modules.depth_head is not None:
+            maps["depth"] = (modules.depth_head(feats)[0] if depth is None
+                             else depth)
+        if modules.semantic_head is not None:
+            maps["sem_probs"] = (modules.semantic_head(feats)
+                                 if sem_probs is None else sem_probs)
+        if modules.instance_head is not None:
+            maps["center"], maps["offset"], maps["thing_mask"] = \
+                modules.instance_head(feats)
+        return maps
+
+    def score(maps, batch):
         results: Dict[str, Any] = {}
         stats: Dict[str, Any] = {}
-        if modules.depth_head is not None:
-            if depth is None:
-                depth, _ = modules.depth_head(feats)
-            results["depth"] = _nhwc(depth)
+        if "depth" in maps:
+            results["depth"] = _nhwc(maps["depth"])
             if batch.get("depth_gt") is not None:
                 stats.update(compute_depth_metrics(
                     batch["depth_gt"], results["depth"], use_gt_scale,
@@ -119,10 +138,8 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
                         batch["depth_gt"], results["depth"],
                         batch["semantic"], num_classes, use_gt_scale,
                         depth_ranges))
-        if modules.semantic_head is not None:
-            if sem_probs is None:
-                sem_probs = modules.semantic_head(feats)
-            sem_soft = _nhwc(sem_probs)
+        if "sem_probs" in maps:
+            sem_soft = _nhwc(maps["sem_probs"])
             sem_pred = sem_soft.argmax(dim=-1).to(torch.int32)
             results["semantic"] = sem_pred
             results["semantic_soft"] = sem_soft
@@ -130,20 +147,32 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
                 gt = batch.get("semantic_eval", batch["semantic"])
                 stats["sem_conf"] = compute_confusion_matrix(
                     sem_pred, gt, num_classes, eval_ignore_classes)
-        if modules.instance_head is not None:
-            center, offset, thing_mask = modules.instance_head(feats)
-            results["center"] = _nhwc(center)
-            results["offset"] = _nhwc(offset)
-            results["thing_mask"] = (None if thing_mask is None
-                                     else _nhwc(thing_mask))
-        if modules.semantic_head is not None \
-                and modules.instance_head is not None:
+        if "center" in maps:
+            results["center"] = _nhwc(maps["center"])
+            results["offset"] = _nhwc(maps["offset"])
+            results["thing_mask"] = (None if maps["thing_mask"] is None
+                                     else _nhwc(maps["thing_mask"]))
+        if "sem_probs" in maps and "center" in maps:
             pan, inst, _ = panoptic_fusion_batch(
                 results["semantic_soft"], results["center"],
                 results["offset"], thing_list)
             results["panoptic"] = pan
             results["instance"] = inst
         return results, stats
+
+    @torch.no_grad()
+    def eval_step(modules, batch, feats=None, sem_probs=None, depth=None):
+        maps = predict(modules, batch, feats, sem_probs, depth)
+        if not spatial.active():
+            return score(maps, batch)
+        # the slabs' maps, whole, scored on rank 0: the fusion's votes and
+        # center NMS are global
+        maps = {key: None if value is None else spatial.gather_rows(value)
+                for key, value in maps.items()}
+        if not parallel.is_lead():
+            return None, None
+        with parallel.replicated():
+            return score(maps, batch)
 
     return eval_step
 
@@ -251,11 +280,17 @@ def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
     where its mask holds: cut cells ``cut_cells`` of the
     ``cut_cfg`` grid, each ending one pixel short of the next cell, or the
     source pixels whose class ``class_replace`` marks.
+
+    Inside a row split (``parallel/spatial.py``) the teacher labels this
+    rank's rows of ``rgb_tgt`` and the labels are gathered: the warp reads
+    any row. The (cheap, elementwise) composition runs on whole images,
+    which every rank returns.
     """
     rgb_tgt = maybe_normalize(mixup["rgb_tgt"], mean, std)
     rgb_src = maybe_normalize(mixup["rgb_src"], mean, std)
     semantic_src = mixup["semantic_src"].long()
-    sem_pred = teacher_labels(teacher, rgb_tgt)
+    sem_pred = spatial.gather_rows(teacher_labels(
+        teacher, spatial.rows_of(rgb_tgt, axis=1)), axis=1)
     if geom_augment:
         rgb_w, sem_w = grid_sample_pair_pre(rgb_tgt, sem_pred[..., None],
                                             mixup["prewarp"])
@@ -295,13 +330,17 @@ def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
 
 # --------------------------------------------------------- student update
 
-def batch_to_device(tree, device):
-    """A batch (nested dicts of numpy arrays or tensors) on ``device``."""
+def batch_to_device(tree, device, float_dtype=None):
+    """A batch (nested dicts of numpy arrays or tensors) on ``device``;
+    with ``float_dtype`` its floating-point leaves in that type."""
     if isinstance(tree, dict):
-        return {k: batch_to_device(v, device) for k, v in tree.items()}
+        return {k: batch_to_device(v, device, float_dtype)
+                for k, v in tree.items()}
     if isinstance(tree, (np.ndarray, np.generic)):
-        return torch.from_numpy(np.asarray(tree)).to(device)
+        tree = torch.from_numpy(np.asarray(tree))
     if isinstance(tree, torch.Tensor):
+        if float_dtype is not None and tree.is_floating_point():
+            return tree.to(device, float_dtype)
         return tree.to(device)
     return tree
 
@@ -332,6 +371,22 @@ def _blend_ema(state: AdaptState, do_ema: bool) -> None:
         for e, p in zip(getattr(state.teacher, name).parameters(),
                         getattr(state.student, name).parameters()):
             e.copy_(alpha * e + (1.0 - alpha) * p)
+
+
+def _check_row_split(student, batch) -> None:
+    """Raises where a row split cannot run the step: the flow head (its
+    three-frame pass and auto-mask are not split yet), or a height that
+    does not split into aligned slabs."""
+    if student.flow_head is not None:
+        raise NotImplementedError(
+            "spatial sharding (tpu.spatial_shard) does not run the flow "
+            "head (model.make_sflow) yet")
+    for domain in ("target", "source", "target_replay"):
+        if domain in batch:
+            spatial.check_height(batch[domain]["frames"].shape[2])
+    for key in ("rgb", "rgb_src", "rgb_tgt"):
+        if key in batch.get("mixup", {}):
+            spatial.check_height(batch["mixup"][key].shape[1])
 
 
 def make_adapt_step(cfg, class_weights, has_replay: bool = True,
@@ -372,6 +427,15 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     runs), so only EMA-filtered modules are read from the teacher.
     Otherwise the teacher evaluates the frame with all of its own
     modules.
+
+    Called inside a row split (``parallel/spatial.py``: ``spatial.rows()``
+    in a process group of N ranks, each holding the whole batch) every
+    rank computes its slab of the rows of every image tensor of the step
+    and its share of every loss; the pose net runs whole on every rank;
+    the gradients are summed over the ranks before Adam; the metrics are
+    the global values on every rank; rank 0 alone gets the eval results
+    and stats (the others None). Heights must split into slabs of a
+    multiple of 32 rows (else ValueError); the flow head raises.
     """
     weights = {k: v for k, v in cfg.losses.weights.items()}
     num_scales = cfg.depth.num_recon_scales
@@ -404,12 +468,14 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         """Depth losses of one domain: a dict of recon, smth, flow (the
         flow smoothness and sparsity, or None without a flow head),
         transformations, feats (the frame-t encoder pyramid), depth (of
-        frame t) and motion (the object-motion pair, or None)."""
+        frame t) and motion (the object-motion pair, or None). In a row
+        split frame t's rows go through the encoder and the losses, the
+        whole frames through the pose net and the warp."""
         if student.flow_head is not None:
             feats_t, *feats_nb = encode_frames(student.backbone_po_depth,
                                                images)
         else:
-            feats_t = student.backbone_po_depth(images[0])
+            feats_t = student.backbone_po_depth(spatial.rows_of(images[0]))
             feats_nb = None
         fwd = depth_forward(student, images, feats_t, feats_nb)
         motion = fwd["object_motion_maps"]
@@ -430,7 +496,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         use_flow = student.flow_head is not None
         losses: Dict[str, torch.Tensor] = {}
         aux: Dict[str, Any] = {}
-        source = batch["source"]
+        source = spatial.place_rows(batch["source"])
         source_images = _triplets(source["frames"], mean, std)
         num_source = source_images[0].shape[0]
 
@@ -515,10 +581,9 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                 losses["flow_sparsity"] = sum(
                     d["flow"][1] * c for d, c in domains) / total_images
         else:
-            target_feats = apply_encoder(student.backbone_po_depth,
-                                         maybe_normalize(
-                                             batch["target"]["frames"][:, 0],
-                                             mean, std))
+            target_feats = apply_encoder(
+                student.backbone_po_depth, maybe_normalize(spatial.rows_of(
+                    batch["target"]["frames"][:, 0], axis=1), mean, std))
             target_depth = None
 
         if reuse_feats:
@@ -528,18 +593,21 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
 
         # ---- source supervised panoptic
         if source_feats is None:
-            source_feats = student.backbone_po_depth(source_images[0])
+            source_feats = student.backbone_po_depth(
+                spatial.rows_of(source_images[0]))
 
         if student.semantic_head is not None:
             mix_feats = None
             if num_mixup > 0:
                 if fused_mixup:
-                    mix_rgb, mix_semantic = compose_mixup(
-                        state.teacher, batch["mixup"], mixup_groups,
-                        cut_cfg, geom_augment, mean, std)
+                    mixup = compose_mixup(state.teacher, batch["mixup"],
+                                          mixup_groups, cut_cfg,
+                                          geom_augment, mean, std)
                 else:
-                    mix_rgb = batch["mixup"]["rgb"]
-                    mix_semantic = batch["mixup"]["semantic"]
+                    mixup = (batch["mixup"]["rgb"],
+                             batch["mixup"]["semantic"])
+                mix_rgb, mix_semantic = (spatial.rows_of(x, axis=1)
+                                         for x in mixup)
                 mix_feats = student.backbone_po_depth(
                     _nchw_images(mix_rgb, mean, std))
             if mix_feats is not None \
@@ -581,11 +649,12 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                     thing_mask_src, source["thing_mask"])
             if "instance_head" in state.ema_modules \
                     and batch["target"].get("center_ema") is not None:
+                target_rows = spatial.place_rows(batch["target"])
                 center_t, offset_t, _ = student.instance_head(target_feats)
                 losses["center_ema"] = ema_consistency_loss(
-                    _nhwc(center_t), batch["target"]["center_ema"])
+                    _nhwc(center_t), target_rows["center_ema"])
                 losses["offset_ema"] = ema_consistency_loss(
-                    _nhwc(offset_t), batch["target"]["offset_ema"])
+                    _nhwc(offset_t), target_rows["offset_ema"])
 
         total = torch.zeros((), device=state.device)
         for key, value in losses.items():
@@ -595,7 +664,8 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
 
         # Replay-buffer features: the target frame's last-stage features,
         # mean-pooled and L2-normalized (adapt.py:756-765).
-        pooled = target_feats[-1].detach().float().mean(dim=(2, 3))
+        pooled = spatial.gather_rows(target_feats[-1].detach()).float() \
+            .mean(dim=(2, 3))
         aux["image_features"] = pooled / torch.clamp(
             torch.linalg.vector_norm(pooled, dim=1, keepdim=True),
             min=1e-12)
@@ -609,6 +679,8 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                        and "backbone_po_depth" in frozen)
         reuse_depth = (reuse_feats and student.depth_head is not None
                        and "depth_head" not in state.ema_modules)
+        if spatial.active():
+            _check_row_split(student, batch)
         if noise is None:
             def noise(shape):
                 return torch.randn(shape, generator=state.generator,
@@ -620,6 +692,9 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         total, losses, aux = loss_fn(state, batch, noise, reuse_feats,
                                      reuse_depth)
         total.backward()
+        if spatial.active():
+            # each rank's loss is its rows' share: the sum is the gradient
+            parallel.sum_gradients(student.parameters())
 
         eval_out = None
         if eval_forward is not None:
@@ -652,8 +727,14 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             _blend_ema(state, bool(batch.get("do_ema", True)))
         state.step += 1
 
-        metrics = {"loss_total": total.detach(), "target_skipped": skip,
-                   **{k: v.detach() for k, v in losses.items()}}
+        values = {"loss_total": total.detach(),
+                  **{k: v.detach() for k, v in losses.items()}}
+        if spatial.active():
+            # the shares of the ranks add up to the global values
+            values = dict(zip(values, parallel.all_reduce(
+                torch.stack(list(values.values()))).unbind()))
+        metrics = {"loss_total": values.pop("loss_total"),
+                   "target_skipped": skip, **values}
         if eval_forward is not None:
             results = eval_out[0]
             if "object_motion_map" in aux:

@@ -39,6 +39,16 @@ while the card runs the next frame.
 Without the camera warp (``geom_augment: false``) the host path labels the
 stack with ``make_plabel_step`` and composes each item with
 ``Mixup.do_mixup``, as the JAX runner does.
+
+Spatial sharding (``cfg.tpu.spatial_shard`` in a process group of N > 1
+ranks, ``parallel/spatial.py``) splits each frame's step by image rows
+over the ranks. Rank 0 alone runs the host pipeline above, as the JAX
+runner's single process does; before each step (and each eval of the
+eval-only mode) it broadcasts the assembled batch, and every rank runs
+the step on its rows. The other ranks follow (``run`` calls ``follow``,
+their loop of receive and step) until rank 0's stop message. The host mixup path's
+pseudo-labels run on rank 0 alone, whole, as the JAX runner leaves that
+call unplaced.
 """
 
 from __future__ import annotations
@@ -50,10 +60,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from codeps_torch import parallel
 from codeps_torch.data.mixup import Mixup
 from codeps_torch.evaluation import (AverageMeter, ConfusionMatrixMeter,
                                      ConstantMeter, PanopticEvaluator,
                                      compute_sem_miou)
+from codeps_torch.parallel import spatial
 from codeps_torch.tasks.adapt import (batch_to_device, build_eval_forward,
                                       make_adapt_step, make_eval_step,
                                       make_gt_panoptic_step,
@@ -151,6 +163,17 @@ class AdaptationRunner:
     def __init__(self, cfg, modules, replay_buffer, seed: int = 0,
                  device=None, verbose: bool = True, noise=None,
                  wandb_logger=None):
+        # spatial sharding: rank 0 leads, the other ranks follow
+        self.row_split = bool(cfg.tpu.spatial_shard) \
+            and parallel.world_size() > 1
+        if self.row_split and modules.flow_head is not None:
+            raise NotImplementedError(
+                "spatial sharding (tpu.spatial_shard) over several ranks "
+                "does not run the flow head (model.make_sflow) yet")
+        # host seconds of each broadcast of a batch, and (on the ranks that
+        # follow) of each step
+        self.row_times: Dict[str, List[float]] = {"broadcast": [],
+                                                  "step": []}
         self.cfg = cfg
         self.buffer = replay_buffer
         self.verbose = verbose
@@ -171,6 +194,9 @@ class AdaptationRunner:
             raise NotImplementedError(
                 "the consistency loss for depth is not implemented (as in "
                 "the reference)")
+        # float64 modules (the exactness mode) stream float64 batches
+        self.float_dtype = (torch.float64 if next(modules.parameters())
+                            .dtype == torch.float64 else None)
         self.state: AdaptState = make_adapt_state(
             modules, cfg.train.optimizer.learning_rate, ema_modules=ema,
             frozen_modules=frozen, ema_alpha=cfg.adapt.ema.alpha, seed=seed,
@@ -413,7 +439,7 @@ class AdaptationRunner:
         intr_tgt = np.stack([np.asarray(item["camera_model_tgt"], np.float32)
                              for _, item in items])
         warped = self.plabel_prep(
-            self.state.teacher, torch.from_numpy(rgb_tgt).to(self.device),
+            self.state.teacher, self._to_device(rgb_tgt),
             self._c2c_prewarp_cached(intr_tgt, intr_src, rgb_tgt.shape[1:3]))
         mark("prep")
         rgb_w, sem_w, inst_w = (t.cpu().numpy() for t in warped)
@@ -463,7 +489,7 @@ class AdaptationRunner:
         rgb_tgt = np.stack([self._host_normalize(item["rgb_tgt"][0])
                             for _, item in items])
         sem, center, offset = (t.cpu().numpy() for t in self.plabel_step(
-            self.state.teacher, torch.from_numpy(rgb_tgt).to(self.device)))
+            self.state.teacher, self._to_device(rgb_tgt)))
         composed = []
         for i, (strategy, item) in enumerate(items):
             data = dict(item)
@@ -595,6 +621,58 @@ class AdaptationRunner:
                     if v is not None and k != "semantic_soft"}
         return {"panoptic": results["panoptic"]}
 
+    def _to_device(self, tree):
+        return batch_to_device(tree, self.device, self.float_dtype)
+
+    def _broadcast(self, message: Optional[Dict[str, Any]]):
+        t0 = time.perf_counter()
+        message = spatial.broadcast_message(message, self.device)
+        self.row_times["broadcast"].append(time.perf_counter() - t0)
+        return message
+
+    def _call_step(self, replay: bool, evaluate: bool, batch):
+        """One adaptation step; in a row split, broadcast first (the eval
+        GT stays on rank 0, which alone scores)."""
+        if not self.row_split:
+            return self.steps[(replay, evaluate)](self.state, batch,
+                                                  noise=self.noise)
+        self._broadcast({"op": "step", "replay": replay,
+                         "evaluate": evaluate,
+                         "batch": {k: v for k, v in batch.items()
+                                   if k != "eval_gt"}})
+        with spatial.rows():
+            return self.steps[(replay, evaluate)](self.state, batch,
+                                                  noise=self.noise)
+
+    def _call_eval(self, batch):
+        """The eval-only mode's teacher eval; in a row split, broadcast
+        first."""
+        if not self.row_split:
+            return self.eval_step(self.state.teacher, batch)
+        self._broadcast({"op": "eval", "batch": {
+            "frames": batch["frames"]}})
+        with spatial.rows():
+            return self.eval_step(self.state.teacher, batch)
+
+    def follow(self) -> Dict[str, Any]:
+        """A rank other than 0 of a row split: receive rank 0's batches
+        and run each step (or eval) on this rank's rows, until rank 0's
+        stop message. Returns the (empty) meters."""
+        while True:
+            message = self._broadcast(None)
+            if message["op"] == "stop":
+                return self.meters
+            t0 = time.perf_counter()
+            with spatial.rows():
+                if message["op"] == "step":
+                    self.steps[(message["replay"], message["evaluate"])](
+                        self.state, message["batch"], noise=self.noise)
+                else:
+                    self.eval_step(self.state.teacher, message["batch"])
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.row_times["step"].append(time.perf_counter() - t0)
+
     def _timed_getitem(self, index: int):
         t0 = time.perf_counter()
         sample = self.buffer[index]
@@ -607,7 +685,17 @@ class AdaptationRunner:
             ) -> Dict[str, Any]:
         """Stream the adaptation split; returns the meters. ``on_frame(it)``
         is called as the host's work on frame ``it`` ends (a profiler's
-        ``step``, for one)."""
+        ``step``, for one). In a row split rank 0 streams and the other
+        ranks ``follow``."""
+        if self.row_split and not parallel.is_lead():
+            return self.follow()
+        try:
+            return self._run(max_frames, log_interval, on_frame)
+        finally:
+            if self.row_split:
+                self._broadcast({"op": "stop"})
+
+    def _run(self, max_frames, log_interval, on_frame):
         log_interval = log_interval or self.cfg.logging.log_step_interval
         num_frames = len(self.buffer)
         if max_frames is not None:
@@ -660,14 +748,11 @@ class AdaptationRunner:
                 if "target" not in sample:
                     continue
                 start = time.perf_counter()
-                eval_gt = batch_to_device(self._target_gt(sample["target"]),
-                                          self.device)
+                eval_gt = self._to_device(self._target_gt(sample["target"]))
                 if self.disable_adaptation:
-                    eval_batch = dict(eval_gt, frames=batch_to_device(
-                        frames_from_sample(sample["target"], self.offsets),
-                        self.device))
-                    results, stats = self.eval_step(self.state.teacher,
-                                                    eval_batch)
+                    eval_batch = dict(eval_gt, frames=self._to_device(
+                        frames_from_sample(sample["target"], self.offsets)))
+                    results, stats = self._call_eval(eval_batch)
                     pan_gt = self._gt_panoptic(sample, eval_gt, results)
                     host, event = _queue_host(
                         {"stats": stats, "pan_gt": pan_gt,
@@ -686,9 +771,8 @@ class AdaptationRunner:
                 if self.mixup_active and not self.fused_mixup:
                     mixup_samples = self._compose_mixups(sample)
                     mark("mixup")
-                batch = batch_to_device(self._adapt_batch(sample,
-                                                          mixup_samples),
-                                        self.device)
+                batch = self._to_device(self._adapt_batch(sample,
+                                                          mixup_samples))
                 batch["eval_gt"] = eval_gt
                 mark("batch")
                 replay = "target_replay" in batch
@@ -696,8 +780,7 @@ class AdaptationRunner:
                 nsteps = self.adaptation_steps
                 for step_i in range(nsteps):
                     batch["do_ema"] = step_i == nsteps - 1
-                    out = self.steps[(replay, step_i == 0)](
-                        self.state, batch, noise=self.noise)
+                    out = self._call_step(replay, step_i == 0, batch)
                     if step_i == 0:
                         metrics, features, results, stats = out
                     else:

@@ -13,6 +13,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from codeps_torch.parallel import spatial
+
 
 def apply_encoder(encoder: nn.Module,
                   images: torch.Tensor) -> list[torch.Tensor]:
@@ -55,8 +57,13 @@ def depth_forward(modules, images: Sequence[torch.Tensor],
     the flow head runs once per pair: its auto-mask thresholds at the
     mean over the batch it is given, which the 2B fold would change.
 
+    Inside a row split (``parallel/spatial.py``) ``feats_center`` and the
+    depth are this rank's slab of rows, and the pose net runs on the
+    whole frames on every rank (``spatial.replicated``): its spatial mean
+    and its train-mode BatchNorm over the pair batch stay exact.
+
     Args:
-      images: [img_t, img_tm1, img_tp1], each (B, 3, H, W).
+      images: [img_t, img_tm1, img_tp1], each (B, 3, H, W), whole.
       feats_center: the depth encoder's pyramid of frame t.
       feats_neighbors: the pyramids of [t-1, t+1] (flow head only).
 
@@ -78,13 +85,14 @@ def depth_forward(modules, images: Sequence[torch.Tensor],
                   for img, d in zip(images, depths)]
     pair_bwd = torch.cat([images[1], images[0]], dim=1)
     pair_fwd = torch.cat([images[0], images[2]], dim=1)
-    pose_feats = modules.backbone_pose_sflow(
-        torch.cat([pair_bwd, pair_fwd], dim=0))
     batch = images[0].shape[0]
-    feats_bwd = [f[:batch] for f in pose_feats]
-    feats_fwd = [f[batch:] for f in pose_feats]
-    t_bwd = modules.pose_head(feats_bwd, invert_pose=True)
-    t_fwd = modules.pose_head(feats_fwd, invert_pose=False)
+    with spatial.replicated():
+        pose_feats = modules.backbone_pose_sflow(
+            torch.cat([pair_bwd, pair_fwd], dim=0))
+        feats_bwd = [f[:batch] for f in pose_feats]
+        feats_fwd = [f[batch:] for f in pose_feats]
+        t_bwd = modules.pose_head(feats_bwd, invert_pose=True)
+        t_fwd = modules.pose_head(feats_fwd, invert_pose=False)
     motion = None
     if use_flow:
         motion = [-modules.flow_head(feats_bwd),

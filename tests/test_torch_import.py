@@ -1,5 +1,6 @@
 """The port stands alone: ``codeps_torch`` and the card scripts
-(``chip_smoke.py``, ``profile_adapt_step.py``, ``time_grouping.py``)
+(``chip_smoke.py``, ``profile_adapt_step.py``, ``time_grouping.py``,
+``spatial_probe.py``)
 import no JAX and nothing of ``codeps_tpu``, import no YAML/PIL/cv2 at
 import time (the card machine may lack them), and their entry points
 never fall back to the CPU on their own. The streamed path's modules,
@@ -43,7 +44,7 @@ def test_every_module_imports_without_jax_or_codeps_tpu():
             codeps_torch.__path__, "codeps_torch.")]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke, profile_adapt_step, time_grouping
+        import chip_smoke, profile_adapt_step, spatial_probe, time_grouping
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
@@ -64,6 +65,7 @@ def test_source_scan_finds_no_jax_or_codeps_tpu_import():
                    if "_build" not in path.parts)
     files += [REPO / name for name in ("chip_smoke.py",
                                        "profile_adapt_step.py",
+                                       "spatial_probe.py",
                                        "time_grouping.py")]
     assert len(files) > 20
     offenders = [f"{path.relative_to(REPO)}: {match.group(0).strip()}"
