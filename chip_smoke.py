@@ -215,8 +215,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
     to its plain version on every call, no copy. (d) ``python -m
     torch.distributed.run --nproc_per_node 2 -m codeps_torch.scripts.adapt``
     on synthetic trees at SPATIAL_CLI_SIZE (ResNet-18): exit 0 with rank
-    0's two files and buffer state only; with ``model.make_sflow: true``
-    it must raise NotImplementedError;
+    0's two files and buffer state only, and with ``model.make_sflow:
+    true`` exit 0 with rank 0's two files; (e) SPATIAL_UNEVEN_RANKS
+    ranks on the card, uneven slabs of whole 32-row blocks (target 4 / 4
+    / 4 blocks, source 6 / 5 / 5): one float64 step of (a)'s batch
+    against one process within SPATIAL_UNEVEN_BOUND, ``sem_conf`` and the
+    panoptic map equal; (f) the scene-flow step (phase 12's flow head on
+    (a)'s batch) split over SPATIAL_RANKS ranks against one process in
+    float64 (within SPATIAL_F64_BOUND, the auto-mask's kept shares
+    equal), SPATIAL_FLOW_TIMED_STEPS timed bfloat16 steps of each, and
+    phase 7's stream with the flow head for SPATIAL_FLOW_FRAMES frames,
+    split and in one process (the kept shares, meters and frame times
+    printed; 2 launches a frame on rank 0, 0 on rank 1);
 15. the ``kernels`` line (with the per-n times and bounds, the times at
     the CLI's, pretraining's, the host mixup path's and the flow paths'
     shapes and the launches and layout copies on each path), the
@@ -403,6 +413,16 @@ SPATIAL_TIMED_STEPS = 3
 SPATIAL_FRAMES = 6
 SPATIAL_CLI_SIZE = (64, 192)
 SPATIAL_CLI_FRAMES = 3
+# (e) one float64 step on SPATIAL_UNEVEN_RANKS ranks: the target's 12
+# blocks split 4 / 4 / 4, the source's 16 blocks 6 / 5 / 5; held to
+# SPATIAL_UNEVEN_BOUND of one process
+SPATIAL_UNEVEN_RANKS = 3
+SPATIAL_UNEVEN_BOUND = 1e-12
+# (f) the flow step on SPATIAL_RANKS ranks: float64 against one process,
+# SPATIAL_FLOW_TIMED_STEPS timed bfloat16 steps after a warm-up, and
+# SPATIAL_FLOW_FRAMES frames of the flow stream
+SPATIAL_FLOW_TIMED_STEPS = 2
+SPATIAL_FLOW_FRAMES = 4
 
 
 def phase(name):
@@ -2327,8 +2347,6 @@ def spatial_exactness(torch, device, modules):
     every rank's metrics, the timed steps and the grouping calls."""
     import numpy as np
     from codeps_torch import parallel
-    from codeps_torch.ops import grouping
-    from codeps_torch.ops import panoptic as panoptic_ops
     from codeps_torch.parallel import spatial
     from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
     target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
@@ -2343,16 +2361,7 @@ def spatial_exactness(torch, device, modules):
                                      num_scales)
     batch, noise = batch_of(0)
     lead = parallel.rank() == 0
-    calls = []
-    group_pixels = panoptic_ops.group_pixels
-
-    def recording(yx, valid, offsets):
-        out = group_pixels(yx, valid, offsets)
-        calls.append((yx.clone(), valid.clone(), offsets.clone(), out))
-        return out
-    panoptic_ops.group_pixels = recording
-    grouping.group_pixels_cuda.launches = 0
-    grouping.group_pixels_cuda.copies = 0
+    finish = recorded_grouping(torch)
 
     def build(dtype_name):
         cfg = adapt_config(target_size, source_size)
@@ -2462,24 +2471,14 @@ def spatial_exactness(torch, device, modules):
                     one_s.append(time.perf_counter() - t0)
         parallel.barrier()
     finally:
-        panoptic_ops.group_pixels = group_pixels
-    launches, copies = (grouping.group_pixels_cuda.launches,
-                        grouping.group_pixels_cuda.copies)
-    max_err = 0
-    for yx, valid, offsets, got in calls:
-        ref_ids = grouping.group_pixels_plain(yx, valid, offsets)
-        max_err = max(max_err, int((got.long() - ref_ids.long()).abs()
-                                   .max()))
-        assert torch.equal(got, ref_ids), "kernel != plain in phase 14"
+        grouped = finish()
     return {"exact": out, "peak_mib": {k: v / 2**20
                                        for k, v in peaks.items()},
             "split_step_ms": [t * 1e3 for t in split_s],
             "one_process_step_ms": [t * 1e3 for t in one_s],
             "collectives_ms": {k: [t * 1e3 for t in v]
                                for k, v in seconds.items()},
-            "launches": launches, "copies": copies,
-            "calls": len(calls), "max_abs_err": max_err,
-            "shapes": sorted({tuple(o.shape[:3]) for _, _, o, _ in calls})}
+            **grouped}
 
 
 def spatial_stream(torch, device, modules):
@@ -2556,8 +2555,260 @@ def spatial_stream(torch, device, modules):
     return out
 
 
+def recorded_grouping(torch):
+    """Records every grouping call of the panoptic fusion from here on,
+    with the counts set to 0. Returns ``finish()``, which restores the
+    fusion's grouping and returns the launches, copies, calls, the
+    largest |kernel - plain| over the calls and the offsets' shapes, each
+    call held equal to ``group_pixels_plain`` on the same inputs."""
+    from codeps_torch.ops import grouping
+    from codeps_torch.ops import panoptic as panoptic_ops
+    calls = []
+    group_pixels = panoptic_ops.group_pixels
+
+    def recording(yx, valid, offsets):
+        out = group_pixels(yx, valid, offsets)
+        calls.append((yx.clone(), valid.clone(), offsets.clone(), out))
+        return out
+    panoptic_ops.group_pixels = recording
+    grouping.group_pixels_cuda.launches = 0
+    grouping.group_pixels_cuda.copies = 0
+
+    def finish():
+        panoptic_ops.group_pixels = group_pixels
+        max_err = 0
+        for yx, valid, offsets, got in calls:
+            ref = grouping.group_pixels_plain(yx, valid, offsets)
+            max_err = max(max_err, int((got.long() - ref.long()).abs()
+                                       .max()))
+            assert torch.equal(got, ref), "kernel != plain in phase 14"
+        return {"launches": grouping.group_pixels_cuda.launches,
+                "copies": grouping.group_pixels_cuda.copies,
+                "calls": len(calls), "max_abs_err": max_err,
+                "shapes": sorted({tuple(o.shape[:3])
+                                  for _, _, o, _ in calls})}
+    return finish
+
+
+def kept_shares(torch, module, shares):
+    """Patch ``module.depth_forward`` to append, for each object-motion
+    pair it returns, the auto-mask's kept share of each map's pixels to
+    ``shares``; returns the function that restores it."""
+    forward = module.depth_forward
+
+    def recording(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        shares.append([float((m.detach() != 0).any(1).double().mean())
+                       for m in out["object_motion_maps"]])
+        return out
+    module.depth_forward = recording
+
+    def restore():
+        module.depth_forward = forward
+    return restore
+
+
+def spatial_flow(torch, device, modules):
+    """Phase 14 (f) on this rank: the scene-flow step of phase 12 (the
+    flow head live, phase 14's batch with the fused cut mixup) split over
+    the ranks against one process, in float64 (held to
+    SPATIAL_F64_BOUND, the eval's motion pair and the auto-mask's kept
+    shares equal) and timed in bfloat16; then phase 7's stream with the
+    flow head for SPATIAL_FLOW_FRAMES frames, split and in one process,
+    with the kept share of every flow-head call. ``modules`` are phase
+    7's float32 weights on the host."""
+    import numpy as np
+    from codeps_torch import parallel
+    from codeps_torch.ops import grouping
+    from codeps_torch.parallel import spatial
+    from codeps_torch.tasks import adapt as adapt_module
+    from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
+                                                 SOURCE_WIDTH)
+    lead = parallel.rank() == 0
+    rng = np.random.default_rng(SEED + 15)
+    batch = spatial_batch(rng, target_size, source_size)
+
+    def flow_cfg(dtype_name):
+        cfg = adapt_config(target_size, source_size)
+        cfg.model.make_sflow = cfg.adapt.model.sflow = True
+        cfg.tpu.compute_dtype = dtype_name
+        cfg.adapt.mixup.general.geom_augment = True
+        return cfg
+
+    cfg = flow_cfg("float32")
+    noise = flow_automask_noise(rng, target_size, source_size,
+                                cfg.depth.num_recon_scales)
+    host = flow_modules(torch, cfg, modules)
+
+    def build(dtype_name):
+        cfg = flow_cfg(dtype_name)
+        return cfg, make_adapt_step(
+            cfg, list(cfg.semantics.class_weights), has_replay=True,
+            num_mixup=NUM_MIXUP, mixup_groups=(("cut_mixup", NUM_MIXUP),),
+            fused_mixup=True,
+            eval_forward=build_eval_forward(cfg, THINGS, NUM_CLASSES))
+
+    out = {}
+    finish = recorded_grouping(torch)
+    # float64, exact: no autocast
+    cfg, step = build("float32")
+    mods = with_compute_dtype(torch, copy.deepcopy(host), torch.float32)
+    f64 = float_frames(torch, batch, torch.float64)
+    runs = {}
+    for split in (True, False):
+        if not split and not lead:
+            continue
+        shares = []
+        restore = kept_shares(torch, adapt_module, shares)
+        try:
+            with spatial.rows() if split else parallel.replicated():
+                runs[split] = spatial_step_run(
+                    torch, step, cfg,
+                    copy.deepcopy(mods).to(device, torch.float64), f64,
+                    noise, device)
+        finally:
+            restore()
+        runs[split]["kept_share"] = shares
+    out["float64"] = {"metrics": runs[True]["metrics"],
+                      "kept_share": runs[True]["kept_share"]}
+    if lead:
+        out["float64"]["against_one_process"] = spatial_distances(
+            torch, runs[True], runs[False])
+        out["float64"]["one_process_kept_share"] = runs[False]["kept_share"]
+    del runs
+    parallel.barrier()
+    # bfloat16, uint8 frames: timed steps, row split then one process
+    cfg, step = build("bfloat16")
+    mods = with_compute_dtype(torch, copy.deepcopy(host), torch.bfloat16)
+    times = {"split": [], "one_process": []}
+    for split in (True, False):
+        if not split and not lead:
+            continue
+        for _ in range(1 + SPATIAL_FLOW_TIMED_STEPS):
+            t0 = time.perf_counter()
+            with spatial.rows() if split else parallel.replicated():
+                spatial_step_run(torch, step, cfg,
+                                 copy.deepcopy(mods).to(device), batch,
+                                 noise, device)
+            times["split" if split else "one_process"].append(
+                (time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = times
+    parallel.barrier()
+    out["step_grouping"] = finish()
+
+    def stream(spatial_shard):
+        scfg = stream_config(target_size, source_size)
+        scfg.model.make_sflow = scfg.adapt.model.sflow = True
+        scfg.tpu.spatial_shard = spatial_shard
+        runner, buffer = build_stream(
+            scfg, with_compute_dtype(torch, copy.deepcopy(host),
+                                     torch.bfloat16).to(device),
+            device, SEED, noise=numpy_noise(torch, SEED, device))
+        shares = []
+        restore = kept_shares(torch, adapt_module, shares)
+        try:
+            if lead:
+                meters, run = drive_stream(torch, runner, card=True,
+                                           max_frames=SPATIAL_FLOW_FRAMES)
+                numbers = stream_numbers(runner, run)
+                numbers.update(
+                    values=meter_values(meters), launches=run["launches"],
+                    copies=run["copies"], calls=len(run["centers"]),
+                    max_abs_err=run["max_abs_err"],
+                    ids={k: np.asarray(v).tolist() for k, v in
+                         buffer.buffer_indices.items()})
+            else:
+                grouping.group_pixels_cuda.launches = 0
+                grouping.group_pixels_cuda.copies = 0
+                runner.run(max_frames=SPATIAL_FLOW_FRAMES)
+                torch.cuda.synchronize()
+                numbers = {"launches": grouping.group_pixels_cuda.launches,
+                           "copies": grouping.group_pixels_cuda.copies}
+        finally:
+            restore()
+        numbers["kept_share"] = shares
+        del runner, buffer
+        torch.cuda.empty_cache()
+        return numbers
+
+    out["stream"] = {"split": stream(True)}
+    if lead:
+        with parallel.replicated():
+            out["stream"]["one_process"] = stream(False)
+    parallel.barrier()
+    return out
+
+
+def spatial_three_rank(rank, world, port, out_dir):
+    """Phase 14 (e), one of SPATIAL_UNEVEN_RANKS ranks started by
+    ``torch.multiprocessing.spawn`` on card ``cuda:0`` over gloo: one
+    float64 step of the published batch with the target's 384 rows split
+    4 / 4 / 4 blocks and the source's 512 rows 6 / 5 / 5, against one
+    process on rank 0 (``parallel.replicated``), from phase 7's weights
+    in ``out_dir/modules.pt``. Writes ``out_dir/uneven<rank>.json``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import numpy as np
+    import torch
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(out_dir)
+    device = torch.device("cuda", 0)
+    modules = torch.load(out_dir / "modules.pt", weights_only=False)
+    target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
+                                                 SOURCE_WIDTH)
+    rng = np.random.default_rng(SEED + 14)
+    batch = spatial_batch(rng, target_size, source_size)
+    cfg = adapt_config(target_size, source_size)
+    cfg.tpu.compute_dtype = "float32"
+    cfg.adapt.mixup.general.geom_augment = True
+    noise = automask_noise(torch, rng, target_size, source_size,
+                           cfg.depth.num_recon_scales)
+    step = make_adapt_step(
+        cfg, list(cfg.semantics.class_weights), has_replay=True,
+        num_mixup=NUM_MIXUP, mixup_groups=(("cut_mixup", NUM_MIXUP),),
+        fused_mixup=True,
+        eval_forward=build_eval_forward(cfg, THINGS, NUM_CLASSES))
+    mods = with_compute_dtype(torch, modules, torch.float32)
+    f64 = float_frames(torch, batch, torch.float64)
+    t0 = time.perf_counter()
+    finish = recorded_grouping(torch)
+    with parallel.process_group(device):
+        assert torch.distributed.get_backend() == "gloo"
+        with spatial.rows():
+            slabs = {}
+            for name, height in (("target", HEIGHT),
+                                 ("source", SOURCE_HEIGHT)):
+                with spatial.image(height):
+                    rows = spatial.row_slab(height)
+                    slabs[name] = [rows.start, rows.stop]
+        torch.cuda.reset_peak_memory_stats()
+        with spatial.rows():
+            ours = spatial_step_run(torch, step, cfg, copy.deepcopy(mods).to(
+                device, torch.float64), f64, noise, device)
+        numbers = {"rank": rank, "slabs": slabs, "metrics": ours["metrics"],
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        if rank == 0:
+            with parallel.replicated():
+                ref = spatial_step_run(torch, step, cfg, copy.deepcopy(
+                    mods).to(device, torch.float64), f64, noise, device)
+            numbers["against_one_process"] = spatial_distances(torch, ours,
+                                                               ref)
+        parallel.barrier()
+    numbers.update(finish())
+    numbers["seconds"] = time.perf_counter() - t0
+    (out_dir / f"uneven{rank}.json").write_text(json.dumps(
+        numbers, default=float))
+
+
 def spatial_smoke_rank(rank, world, port, out_dir):
-    """One rank of phase 14 (a) to (c), started by
+    """One rank of phase 14 (a) to (c) and (f), started by
     ``torch.multiprocessing.spawn``: every rank on the explicit card
     ``cuda:0``, over gloo. Reads phase 7's weights from
     ``out_dir/modules.pt`` and writes its numbers to
@@ -2582,6 +2833,9 @@ def spatial_smoke_rank(rank, world, port, out_dir):
         t0 = time.perf_counter()
         numbers["stream"] = spatial_stream(torch, device, modules)
         numbers["stream_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numbers["flow"] = spatial_flow(torch, device, modules)
+        numbers["flow_s"] = time.perf_counter() - t0
     (out_dir / f"rank{rank}.json").write_text(json.dumps(
         numbers, default=float))
 
@@ -2629,9 +2883,9 @@ def spatial_cli(root):
     SPATIAL_RANKS -m codeps_torch.scripts.adapt`` on synthetic KITTI-360
     and Cityscapes trees written under ``root`` (ResNet-18 at
     SPATIAL_CLI_SIZE, ``tpu.spatial_shard: true``, every rank on card
-    ``cuda:0`` over gloo), then the same with ``model.make_sflow: true``,
-    which must fail. Returns (seconds, files written, the flow run's
-    exit code, output tails)."""
+    ``cuda:0`` over gloo), then the same with ``model.make_sflow: true``.
+    Returns (seconds, files written, the flow run's exit code, seconds and
+    files, output tails)."""
     import os
     from codeps_torch.data.synthetic import (make_cityscapes_tree,
                                              make_kitti360_tree)
@@ -2669,14 +2923,18 @@ def spatial_cli(root):
                      if p.is_file())
     log = (root / "experiments" / "adapt_spatial" / "logs"
            / "run.log").read_text()
-    flow, _ = run("flow", "true")
+    buffer_states = sorted(p.name for p in root.glob("*_buffer.pkl"))
+    flow, flow_seconds = run("flow", "true")
+    flow_written = sorted(str(p.relative_to(root / "experiments"))
+                          for p in (root / "experiments" / "adapt_flow")
+                          .rglob("*") if p.is_file())
     return {"seconds": seconds, "written": written,
-            "buffer_states": sorted(p.name for p in
-                                    root.glob("*_buffer.pkl")),
+            "buffer_states": buffer_states,
             "stream_lines": log.count("Adaptation done"),
             "val_lines": log.count("Target val"),
-            "flow_rc": flow.returncode,
-            "flow_raised": "NotImplementedError" in flow.stdout + flow.stderr,
+            "flow_rc": flow.returncode, "flow_seconds": flow_seconds,
+            "flow_written": flow_written,
+            "flow_tail": flow.stdout[-3000:] + flow.stderr[-3000:],
             "tail": proc.stdout[-1500:]}
 
 
@@ -4021,6 +4279,13 @@ def main() -> int:
                        nprocs=SPATIAL_RANKS, join=True)
         sranks = [json.loads((spatial_dir / f"rank{r}.json").read_text())
                   for r in range(SPATIAL_RANKS)]
+        # (e) three ranks: uneven slabs of the source
+        torch_mp.spawn(spatial_three_rank,
+                       args=(SPATIAL_UNEVEN_RANKS, free_port(),
+                             str(spatial_dir)),
+                       nprocs=SPATIAL_UNEVEN_RANKS, join=True)
+        uneven = [json.loads((spatial_dir / f"uneven{r}.json").read_text())
+                  for r in range(SPATIAL_UNEVEN_RANKS)]
         # (d) the CLI under torchrun, every rank on card 0
         cli_numbers = spatial_cli(spatial_dir)
     finally:
@@ -4146,8 +4411,68 @@ def main() -> int:
           f"{SPATIAL_CLI_FRAMES} frames) exit 0 in {cli_numbers['seconds']:.3f}"
           f" s; files {cli_numbers['written']}, buffer states "
           f"{cli_numbers['buffer_states']}; make_sflow exit "
-          f"{cli_numbers['flow_rc']} (NotImplementedError "
-          f"{cli_numbers['flow_raised']})")
+          f"{cli_numbers['flow_rc']} in {cli_numbers['flow_seconds']:.3f} s, "
+          f"files {cli_numbers['flow_written']}")
+    # (e) three ranks, uneven slabs
+    f64_uneven = uneven[0]["against_one_process"]
+    uneven_worst = max([*f64_uneven["loss_rel"].values(),
+                        *f64_uneven["grad_rel_l2"].values(),
+                        *f64_uneven["param_err"].values()])
+    print(f"spatial (e) float64, {SPATIAL_UNEVEN_RANKS} ranks sharing the "
+          f"card ({smi}), rows of target / source by rank "
+          + ", ".join(f"{n['slabs']['target']} / {n['slabs']['source']}"
+                      for n in uneven)
+          + f", against one process: losses rel "
+          f"{max(f64_uneven['loss_rel'].values()):.3g}; gradients by "
+          f"relative L2 " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      f64_uneven["grad_rel_l2"].items())
+          + f"; parameters {max(f64_uneven['param_err'].values()):.3g}; "
+          f"replay features {f64_uneven['features']:.3g}; sem_conf equal "
+          f"{f64_uneven['sem_conf_equal']}, panoptic map equal "
+          f"{f64_uneven['panoptic_equal']}; peak memory by rank "
+          f"{[round(n['peak_mib'], 1) for n in uneven]} MiB; "
+          f"{[round(n['seconds'], 3) for n in uneven]} s")
+    # (f) the flow head, 2 ranks
+    fl = lead_numbers["flow"]
+    f64_flow = fl["float64"]["against_one_process"]
+    flow_worst = max([*f64_flow["loss_rel"].values(),
+                      *f64_flow["grad_rel_l2"].values(),
+                      *f64_flow["param_err"].values()])
+    flow_split_ms = [max(n["flow"]["step_ms"]["split"][i] for n in sranks)
+                     for i in range(1 + SPATIAL_FLOW_TIMED_STEPS)]
+    fs = fl["stream"]
+    print(f"spatial (f) flow step float64, {SPATIAL_RANKS} ranks against "
+          f"one process: losses rel {max(f64_flow['loss_rel'].values()):.3g}"
+          f"; gradients by relative L2 "
+          + ", ".join(f"{k} {v:.3g}" for k, v in
+                      f64_flow["grad_rel_l2"].items())
+          + f"; parameters {max(f64_flow['param_err'].values()):.3g}; "
+          f"sem_conf equal {f64_flow['sem_conf_equal']}, panoptic map "
+          f"equal {f64_flow['panoptic_equal']}; auto-mask kept shares by "
+          f"call, split {fl['float64']['kept_share']}, one process "
+          f"{fl['float64']['one_process_kept_share']}")
+    print(f"spatial (f) flow step bfloat16: row split (slowest rank) "
+          f"{[round(t, 3) for t in flow_split_ms]} ms, one process "
+          f"{[round(t, 3) for t in fl['step_ms']['one_process']]} ms (host "
+          f"clock after a synchronize, first is the warm-up)")
+    print(f"spatial (f) flow stream, {SPATIAL_FLOW_FRAMES} frames, bfloat16:"
+          f" row split {fs['split']['frame_ms']:.3f} ms a frame (all "
+          f"{[round(t, 3) for t in fs['split']['all_ms']]}), one process "
+          f"{fs['one_process']['frame_ms']:.3f} ms (all "
+          f"{[round(t, 3) for t in fs['one_process']['all_ms']]}); meters "
+          f"split / one process "
+          + ", ".join(f"{k} {fs['split']['values'][k]:.6g} / "
+                      f"{fs['one_process']['values'][k]:.6g}"
+                      for k in ("p_pq", "sem_miou", "d_abs_rel",
+                                "flow_smth", "flow_sparsity"))
+          + f"; buffer ids equal "
+          f"{fs['split']['ids'] == fs['one_process']['ids']}; auto-mask "
+          f"kept share by call (target pair), split "
+          f"{[round(v, 4) for c in fs['split']['kept_share'] for v in c]}"
+          f", one process "
+          f"{[round(v, 4) for c in fs['one_process']['kept_share'] for v in c]}"
+          f"; grouping launches {fs['split']['launches']} on rank 0, "
+          f"{sranks[1]['flow']['stream']['split']['launches']} on rank 1")
     assert f64_worst <= SPATIAL_F64_BOUND, f64
     assert f64["features"] <= SPATIAL_F64_BOUND, f64["features"]
     assert f64["sem_conf_equal"] and f64["panoptic_equal"], f64
@@ -4172,15 +4497,79 @@ def main() -> int:
         cli_numbers["written"]
     assert cli_numbers["buffer_states"] == ["spatial_buffer.pkl"]
     assert cli_numbers["stream_lines"] == cli_numbers["val_lines"] == 1
-    assert cli_numbers["flow_rc"] != 0 and cli_numbers["flow_raised"]
+    assert cli_numbers["flow_rc"] == 0, cli_numbers["flow_tail"]
+    assert cli_numbers["flow_written"] == ["adapt_flow/config.yaml",
+                                           "adapt_flow/logs/run.log"], \
+        cli_numbers["flow_written"]
+    assert uneven_worst <= SPATIAL_UNEVEN_BOUND, f64_uneven
+    assert f64_uneven["features"] <= SPATIAL_UNEVEN_BOUND
+    assert f64_uneven["sem_conf_equal"] and f64_uneven["panoptic_equal"]
+    # whole blocks in order, as evenly as blocks allow (512 rows: 192,
+    # 160, 160)
+    for name, height in (("target", HEIGHT), ("source", SOURCE_HEIGHT)):
+        slabs = [n["slabs"][name] for n in uneven]
+        sizes = [stop - start for start, stop in slabs]
+        assert slabs[0][0] == 0 and slabs[-1][1] == height, slabs
+        assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:])), slabs
+        assert all(size % 32 == 0 for size in sizes), slabs
+        assert max(sizes) - min(sizes) <= 32, slabs
+    for n in uneven:
+        assert n["metrics"] == uneven[0]["metrics"]
+    assert flow_worst <= SPATIAL_F64_BOUND, f64_flow
+    assert f64_flow["sem_conf_equal"] and f64_flow["panoptic_equal"]
+    assert fl["float64"]["kept_share"] == \
+        fl["float64"]["one_process_kept_share"]
+    assert all(0.0 < v < 1.0 for c in fl["float64"]["kept_share"]
+               for v in c), fl["float64"]["kept_share"]
+    for n in sranks:
+        assert n["flow"]["float64"]["metrics"] == fl["float64"]["metrics"]
+        # the motion maps are whole on every rank: the same kept shares
+        assert n["flow"]["float64"]["kept_share"] == \
+            fl["float64"]["kept_share"]
+    assert len(fs["split"]["kept_share"]) == len(
+        fs["one_process"]["kept_share"]) > 0
+    for part in fs.values():
+        assert part["copies"] == 0
+    assert fs["split"]["max_abs_err"] == fs["one_process"][
+        "max_abs_err"] == 0
+    assert fs["split"]["launches"] == 2 * SPATIAL_FLOW_FRAMES
+    assert sranks[1]["flow"]["stream"]["split"]["launches"] == 0
+    # one eval a step on rank 0: float64 split and one process, then the
+    # bfloat16 warm-up and timed steps of each
+    flow_grouped = fl["step_grouping"]
+    assert flow_grouped["launches"] == 2 * (2 + SPATIAL_FLOW_TIMED_STEPS), \
+        flow_grouped
+    assert sranks[1]["flow"]["step_grouping"]["launches"] == 0
+    assert flow_grouped["copies"] == flow_grouped["max_abs_err"] == 0
+    # (e): the split's eval and the one process's on rank 0
+    assert [n["launches"] for n in uneven] == [2] + [0] * (
+        SPATIAL_UNEVEN_RANKS - 1), uneven
+    assert all(n["copies"] == n["max_abs_err"] == 0 for n in uneven)
     spatial_launches = {
         "spatial_step": sum(n["exactness"]["launches"] for n in sranks),
         "spatial_stream": sum(part["split"]["launches"] for n in sranks
-                              for part in n["stream"].values())}
+                              for part in n["stream"].values()),
+        "spatial_flow_step": sum(n["flow"]["step_grouping"]["launches"]
+                                 for n in sranks),
+        "spatial_flow_stream": sum(n["flow"]["stream"]["split"]["launches"]
+                                   for n in sranks),
+        "spatial_uneven_step": sum(n["launches"] for n in uneven)}
     spatial_copies = {
         "spatial_step": sum(n["exactness"]["copies"] for n in sranks),
         "spatial_stream": sum(part["split"]["copies"] for n in sranks
-                              for part in n["stream"].values())}
+                              for part in n["stream"].values()),
+        "spatial_flow_step": sum(n["flow"]["step_grouping"]["copies"]
+                                 for n in sranks),
+        "spatial_flow_stream": sum(n["flow"]["stream"]["split"]["copies"]
+                                   for n in sranks),
+        "spatial_uneven_step": sum(n["copies"] for n in uneven)}
+    print(f"spatial grouping launches, the flow paths: steps "
+          f"{spatial_launches['spatial_flow_step']}, stream "
+          f"{spatial_launches['spatial_flow_stream']}; the uneven step "
+          f"{spatial_launches['spatial_uneven_step']} (all ranks); 0 "
+          f"copies; kernel == plain on all "
+          f"{flow_grouped['calls'] + fs['split']['calls'] + uneven[0]['calls']}"
+          f" calls")
     spatial_numbers = {
         "card": smi, "ranks": SPATIAL_RANKS, "backend": "gloo",
         "shared_card": True, "config": "cfg/adapt_cityscapes_kitti_360.yaml",
@@ -4214,12 +4603,33 @@ def main() -> int:
             "float64_panoptic_diff_share": st64["panoptic_diff_share"],
             "float64_frame_ms": [st64["split"]["frame_ms"],
                                  st64["one_process"]["frame_ms"]]},
-        "cli": {k: cli_numbers[k] for k in ("seconds", "written", "flow_rc")},
+        "cli": {k: cli_numbers[k] for k in ("seconds", "written", "flow_rc",
+                                            "flow_seconds", "flow_written")},
+        "uneven": {"ranks": SPATIAL_UNEVEN_RANKS,
+                   "slabs": [n["slabs"] for n in uneven],
+                   "float64": f64_uneven,
+                   "bound": SPATIAL_UNEVEN_BOUND,
+                   "peak_mib": [n["peak_mib"] for n in uneven]},
+        "flow": {"float64": f64_flow,
+                 "kept_share": fl["float64"]["kept_share"],
+                 "step_ms": {"split": flow_split_ms,
+                             "one_process": fl["step_ms"]["one_process"]},
+                 "stream": {name: {k: part[k] for k in (
+                     "frame_ms", "all_ms", "peak_mib", "kept_share")}
+                     for name, part in fs.items()},
+                 "stream_meters": {k: [fs["split"]["values"][k],
+                                       fs["one_process"]["values"][k]]
+                                   for k in ("p_pq", "sem_miou",
+                                             "d_abs_rel")}},
         "launches": spatial_launches, "copies": spatial_copies,
         "seconds": {"exactness": [n["exactness_s"] for n in sranks],
-                    "stream": [n["stream_s"] for n in sranks]}}
+                    "stream": [n["stream_s"] for n in sranks],
+                    "flow": [n["flow_s"] for n in sranks],
+                    "uneven": [n["seconds"] for n in uneven]}}
     spatial_err = max(ex["max_abs_err"], split_stream["max_abs_err"],
-                      st64["split"]["max_abs_err"])
+                      st64["split"]["max_abs_err"],
+                      fs["split"]["max_abs_err"], flow_grouped["max_abs_err"],
+                      *(n["max_abs_err"] for n in uneven))
     print(f"phase 14: {time.perf_counter() - phase_start:.3f} s")
 
     phase("15 result")

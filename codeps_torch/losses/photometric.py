@@ -12,8 +12,9 @@ drawn from a ``torch.Generator``, or taken from an injected ``noise``
 callable that returns a tensor of the shape it is asked for.
 
 Inside a row split (``parallel/spatial.py``) ``reconstruction_loss``
-takes the frames whole and the depth (and motion) as this rank's slab of
-rows: each scale's images and the gathered depth are resized whole and
+takes the frames and the motion whole and the depth as this rank's slab
+of rows: each scale's images, motion and the gathered depth are resized
+whole and
 cut to this rank's rows, so those rows equal the one-process rows bit for
 bit; the SSIM pools read the neighbouring slabs' rows, the warp samples
 the whole neighbour frames, the noise is this rank's rows of the whole
@@ -116,7 +117,8 @@ def reconstruction_loss(intrinsics: torch.Tensor,
       images: the triplet [t, t-1, t+1], each (B, 3, H, W).
       depth_map: (B, 1, H, W) depth of frame t.
       poses: [T(t->t-1), T(t->t+1)], each (B, 4, 4).
-      object_motion_maps: optional pair of (B, 3, H, W) scene-flow maps.
+      object_motion_maps: optional pair of (B, 3, H, W) scene-flow maps,
+        whole in a row split.
       per_sample: return the (B,) per-sample losses instead of their mean.
       generator: source of the identity noise when ``noise`` is None.
       noise: callable ``shape -> tensor`` giving the (B, 2, h, w) identity
@@ -134,9 +136,6 @@ def reconstruction_loss(intrinsics: torch.Tensor,
     dtype = loss_dtype(dtype, images[0])
     target = images[0].to(dtype)
     depth_map = spatial.gather_rows(depth_map)
-    if object_motion_maps is not None:
-        object_motion_maps = [spatial.gather_rows(m)
-                              for m in object_motion_maps]
     total = torch.zeros((batch,) if per_sample else (),
                         device=images[0].device)
     for s in range(num_scales):

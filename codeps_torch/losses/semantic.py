@@ -99,7 +99,10 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
     loss = loss * pixel_weights
     if top_k_percent_pixels < 1.0:
         flat = loss.reshape(-1)
-        pixels = flat.shape[0] * parallel.group_size()
+        # the global batch: every rank's rows, or B rows a rank
+        pixels = (loss[:, 0].numel() * spatial.global_rows(loss.shape[1])
+                  if spatial.active()
+                  else flat.shape[0] * parallel.group_size())
         return spatial.share(top_k_mean(flat,
                                         int(top_k_percent_pixels * pixels)))
     return spatial.mean(widened(loss))

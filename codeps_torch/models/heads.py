@@ -21,7 +21,8 @@ these plain forms too:
 
 Convs and reflection pads are the row-split layers of
 ``parallel/spatial.py`` (the flow head's own reflection, ``_reflect_pad``,
-is not: the flow path does not run row-split).
+is not: in a row split the flow head runs whole on every rank, as the
+pose net it reads).
 
 Each head runs its body in its ``compute_dtype`` (``models/precision.py``)
 and returns float32 (float64 for float64 modules, ``precision.widened``),

@@ -8,7 +8,8 @@ clamped, in integer arithmetic: the JAX package's rule, which torch's
 ``"nearest"`` computes through a float scale.
 
 Inside a row split (``parallel/spatial.py``) an NCHW input is this rank's
-slab of rows and ``size`` the slab of the output: the bilinear and the
+slab of rows and ``size`` the slab of the output, both levels of the
+slabs of ``spatial.image``: the bilinear and the
 general nearest resize take each output row's source rows from the
 global coordinates, with the neighbouring slabs' rows they reach as a
 halo; the 2x nearest upsampling of an aligned slab needs none.
@@ -46,19 +47,21 @@ def _source_rows(in_rows: int, out_rows: int, mode: str,
 def _resize_rows(x: torch.Tensor, out_rows: int, mode: str,
                  align_corners: bool) -> torch.Tensor:
     """The rows axis (-2) of this rank's slab ``x`` resized to its slab of
-    ``out_rows`` output rows."""
-    height, ranks, rank = x.shape[-2], spatial.count(), spatial.index()
-    first, second, weight = _source_rows(height * ranks, out_rows * ranks,
-                                         mode, align_corners)
+    ``out_rows`` output rows (the slabs of ``spatial.slabs``)."""
+    ins, outs = spatial.slabs(x.shape[-2]), spatial.slabs(out_rows)
+    first, second, weight = _source_rows(sum(n for _, n in ins),
+                                         sum(n for _, n in outs), mode,
+                                         align_corners)
     # one halo for every rank: the rows any slab reaches past its own
-    per_out = np.arange(ranks * out_rows).reshape(ranks, out_rows)
-    starts = np.arange(ranks)[:, None] * height
-    top = int(max(0, (starts[:, 0] - first[per_out].min(axis=1)).max()))
-    bottom = int(max(0, (second[per_out].max(axis=1) - starts[:, 0]
-                         - height + 1).max()))
+    top = bottom = 0
+    for (start, height), (out_start, out_height) in zip(ins, outs):
+        mine = slice(out_start, out_start + out_height)
+        top = max(top, start - int(first[mine].min()))
+        bottom = max(bottom, int(second[mine].max()) - start - height + 1)
     ext = spatial.halo_rows(x, top, bottom, "replicate")
-    mine = per_out[rank]
-    base = rank * height - top
+    out_start, out_height = outs[spatial.index()]
+    mine = slice(out_start, out_start + out_height)
+    base = ins[spatial.index()][0] - top
     pick = [torch.from_numpy(rows[mine] - base).to(x.device)
             for rows in (first, second)]
     lower = ext.index_select(-2, pick[0])

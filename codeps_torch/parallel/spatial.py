@@ -9,16 +9,23 @@ The port runs one process per card (``parallel/dist.py``), and inside
 ``rows()`` each of the N ranks computes its own contiguous slab of rows of
 every image tensor of the step:
 
-  - ``row_slab``/``rows_of`` cut a global height into N equal slabs, each
-    a multiple of ``ROW_ALIGN`` (the encoder's output stride) rows high, so
-    that every strided conv, pool and power-of-two resize sees whole rows;
+  - ``slab_rows`` deals a global height's blocks of ``ROW_ALIGN`` rows
+    (the encoder's output stride) out to the N ranks as evenly as whole
+    blocks allow, the larger slabs first (384 rows on 8 ranks: 2, 2, 2,
+    2, 1, 1, 1, 1 blocks), so that every strided conv, pool and
+    power-of-two resize sees whole rows on every rank. ``image(height)``
+    names the full-resolution height of the image a block of code works
+    on: a slab's row count at any level of its pyramid maps to the global
+    count and offset through that image's table (``row_slab``,
+    ``rows_of``, ``global_rows``, ``row_offset``);
   - ``halo_rows`` fetches the rows a window reaches across a slab's edge
     from the neighbours (an all-gather of every rank's boundary rows) and
     pads only at the image's own edges; its backward returns the halo
     rows' gradients to their owners. ``Conv2d``, ``MaxPool2d`` and
     ``ReflectionPad2d`` are the torch modules (same parameters and state
     dict) that run through it on a slab;
-  - ``gather_rows`` joins the slabs of a map: the teacher eval's outputs,
+  - ``gather_rows`` joins the slabs of a map (padded to the largest slab
+    for the all-gather, then trimmed): the teacher eval's outputs,
     and a map that a loss reads whole (the depth that the photometric
     loss resizes, the disparity whose mean the smoothness loss takes), so
     that the rows each rank computes equal the one-process rows bit for
@@ -45,10 +52,11 @@ from torch import nn
 
 from codeps_torch.parallel import dist
 
-# a slab's height is a multiple of the encoder's output stride
+# a slab is whole blocks of the encoder's output stride
 ROW_ALIGN = 32
 
-_ROWS = {"on": False}
+# "height": the full-resolution height of ``image()``'s block
+_ROWS = {"on": False, "height": None}
 
 # Height axis of each leaf of the adaptation batch by its key (NHWC, as
 # the batch is built); every other leaf (cameras, cut cells, flags) is
@@ -127,25 +135,83 @@ def replicated():
     return dist.replicated() if active() else contextlib.nullcontext()
 
 
-def check_height(height: int) -> None:
-    """Raises ValueError unless ``height`` splits into ``count()`` slabs of
-    a multiple of ROW_ALIGN rows."""
-    if height % (ROW_ALIGN * count()):
+@contextlib.contextmanager
+def image(height: int) -> Iterator[None]:
+    """Within the block the slabs are those of an image of ``height``
+    rows at full resolution: the tables of ``slab_rows`` scaled to each
+    level of its pyramid. Every row-split function that maps a slab to
+    its image (cutting, gathering, resizing, global means and counts)
+    reads it."""
+    before = _ROWS["height"]
+    _ROWS["height"] = height
+    try:
+        yield
+    finally:
+        _ROWS["height"] = before
+
+
+def slab_rows(height: int, ranks: int, rank: int) -> tuple[int, int]:
+    """(first row, row count) of rank ``rank``'s slab when ``height`` rows
+    split over ``ranks``: its blocks of ROW_ALIGN rows dealt out as evenly
+    as whole blocks allow, the larger slabs first (512 rows on 3 ranks: 6,
+    5 and 5 blocks). Raises ValueError unless every rank gets a whole
+    block at least."""
+    blocks = height // ROW_ALIGN
+    if height % ROW_ALIGN or blocks < ranks:
         raise ValueError(
-            f"a height of {height} rows does not split over {count()} ranks "
-            f"into slabs of a multiple of {ROW_ALIGN} rows: spatial sharding "
-            f"needs heights divisible by {ROW_ALIGN * count()}")
+            f"a height of {height} rows does not split over {ranks} ranks "
+            f"into slabs of whole {ROW_ALIGN}-row blocks: spatial sharding "
+            f"needs a multiple of {ROW_ALIGN} rows with at least {ranks} "
+            f"blocks ({ROW_ALIGN * ranks} rows)")
+    per_rank, extra = divmod(blocks, ranks)
+    first = rank * per_rank + min(rank, extra)
+    return first * ROW_ALIGN, (per_rank + (rank < extra)) * ROW_ALIGN
+
+
+def check_height(height: int) -> None:
+    """Raises ValueError unless ``height`` splits over ``count()`` ranks
+    into slabs of whole ROW_ALIGN-row blocks."""
+    slab_rows(height, count(), 0)
+
+
+def _blocks() -> list[tuple[int, int]]:
+    """Each rank's (first block, block count) of ``image()``'s rows."""
+    height = _ROWS["height"]
+    if height is None:
+        raise RuntimeError("a row split needs the height of the image its "
+                           "slabs belong to: spatial.image(height)")
+    return [(first // ROW_ALIGN, size // ROW_ALIGN) for first, size in
+            (slab_rows(height, count(), r) for r in range(count()))]
+
+
+def _scaled(blocks, per_block: int) -> list[tuple[int, int]]:
+    return [(first * per_block, size * per_block) for first, size in blocks]
+
+
+def slabs(rows: int) -> list[tuple[int, int]]:
+    """Each rank's (first row, row count) at the level of ``image()``'s
+    pyramid where this rank's slab has ``rows`` rows."""
+    blocks = _blocks()
+    mine = blocks[index()][1]
+    if rows % mine:
+        raise ValueError(f"a slab of {rows} rows is not whole rows for each "
+                         f"of its {mine} blocks")
+    return _scaled(blocks, rows // mine)
 
 
 def row_slab(height: int) -> slice:
-    """This rank's rows of a global ``height`` (all of them unless
-    ``active()``)."""
+    """This rank's rows of a global ``height``, a level of ``image()``'s
+    pyramid (all of them unless ``active()``)."""
     if not active():
         return slice(0, height)
-    if height % count():
-        raise ValueError(f"{height} rows do not split over {count()} ranks")
-    per_rank = height // count()
-    return slice(index() * per_rank, (index() + 1) * per_rank)
+    blocks = _blocks()
+    total = sum(size for _, size in blocks)
+    if height % total:
+        raise ValueError(f"{height} rows are not whole rows for each of the "
+                         f"{total} blocks of an image of {_ROWS['height']} "
+                         f"rows")
+    first, size = _scaled(blocks, height // total)[index()]
+    return slice(first, first + size)
 
 
 def rows_of(x, axis: int = -2):
@@ -175,13 +241,17 @@ def place_rows(tree: dict) -> dict:
 
 def global_rows(local: int) -> int:
     """The global row count of a slab of ``local`` rows."""
-    return local * count()
+    if not active():
+        return local
+    return sum(size for _, size in slabs(local))
 
 
 def row_offset(local: int) -> int:
     """The global index of the first row of this rank's slab of ``local``
     rows."""
-    return index() * local
+    if not active():
+        return 0
+    return slabs(local)[index()][0]
 
 
 # ------------------------------------------------------ halo and gather
@@ -230,43 +300,67 @@ def _edge_backward(grad_mid: torch.Tensor, grad_pad: torch.Tensor,
 
 class _Halo(torch.autograd.Function):
     """(.., top + h + bottom, W): the slab with its neighbours' boundary
-    rows, padded by ``edge`` at the image's own top and bottom."""
+    rows, padded by ``edge`` at the image's own top and bottom. A
+    reflection at the image's edge that reaches past the edge rank's slab
+    (a slab of one block has one row at stride 32) takes the rows beyond
+    from the neighbour's boundary rows, and its backward returns their
+    gradients to the neighbour."""
 
     @staticmethod
     def forward(ctx, x, top, bottom, edge):
         height = x.shape[-2]
-        if top > height or bottom > height:
+        # the same on every rank: the smallest slab at this level
+        smallest = min(size for _, size in slabs(height))
+        if top > smallest or bottom > smallest:
             raise ValueError(f"a halo of {top} + {bottom} rows reaches past "
-                             f"the neighbouring slab of {height} rows")
+                             f"the smallest slab of {smallest} rows")
         ctx.top, ctx.bottom, ctx.edge = top, bottom, edge
         rank, world = dist.rank(), dist.world_size()
         # each rank's first `bottom` rows (the halo below its upper
         # neighbour) and last `top` rows (above its lower neighbour)
         parts = _gather_list(torch.cat([x[..., :bottom, :],
                                         x[..., height - top:, :]], dim=-2))
-        up = (parts[rank - 1][..., bottom:, :] if rank > 0
-              else _edge_rows(x, top, "top", edge))
-        down = (parts[rank + 1][..., :bottom, :] if rank < world - 1
-                else _edge_rows(x, bottom, "bottom", edge))
-        return torch.cat([up, x, down], dim=-2)
+        below = parts[rank + 1][..., :bottom, :] if rank < world - 1 else None
+        above = parts[rank - 1][..., bottom:, :] if rank > 0 else None
+        reflect = edge == "reflect"
+        if rank == 0:
+            above = _edge_rows(torch.cat([x, below], dim=-2) if reflect
+                               else x, top, "top", edge)
+        if rank == world - 1:
+            below = _edge_rows(torch.cat([above, x], dim=-2) if reflect
+                               else x, bottom, "bottom", edge)
+        return torch.cat([above, x, below], dim=-2)
 
     @staticmethod
     def backward(ctx, grad):
-        top, bottom = ctx.top, ctx.bottom
+        top, bottom, edge = ctx.top, ctx.bottom, ctx.edge
         rank, world = dist.rank(), dist.world_size()
         height = grad.shape[-2] - top - bottom
         grad_up = grad[..., :top, :]
         grad_down = grad[..., top + height:, :]
         grad_mid = grad[..., top:top + height, :].clone()
-        parts = _gather_list(torch.cat([grad_up, grad_down], dim=-2))
+        # the gradients of the upper neighbour's last `top` rows and of
+        # the lower neighbour's first `bottom` rows
+        to_up, to_down = grad_up.clone(), grad_down.clone()
+        if rank == 0 and edge == "reflect":
+            # the reflected rows of the slab and the lower neighbour's
+            ext = torch.cat([grad_mid, torch.zeros_like(to_down)], dim=-2)
+            _edge_backward(ext, grad_up, "top", edge)
+            grad_mid, to_down = ext[..., :height, :], to_down + ext[
+                ..., height:, :]
+        elif rank == 0:
+            _edge_backward(grad_mid, grad_up, "top", edge)
+        if rank == world - 1 and edge == "reflect":
+            ext = torch.cat([torch.zeros_like(to_up), grad_mid], dim=-2)
+            _edge_backward(ext, grad_down, "bottom", edge)
+            grad_mid, to_up = ext[..., top:, :], to_up + ext[..., :top, :]
+        elif rank == world - 1:
+            _edge_backward(grad_mid, grad_down, "bottom", edge)
+        parts = _gather_list(torch.cat([to_up, to_down], dim=-2))
         if rank < world - 1:
             grad_mid[..., height - top:, :] += parts[rank + 1][..., :top, :]
-        else:
-            _edge_backward(grad_mid, grad_down, "bottom", ctx.edge)
         if rank > 0:
             grad_mid[..., :bottom, :] += parts[rank - 1][..., top:, :]
-        else:
-            _edge_backward(grad_mid, grad_up, "top", ctx.edge)
         return grad_mid, None, None, None
 
 
@@ -290,13 +384,22 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int,
 
 
 def gather_rows(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
-    """The whole tensor of every rank's slab along ``axis``, on every rank.
-    Differentiable: a rank's slab gets the sum over the ranks of their
-    gradients of its rows, so a term that every rank computes whole from
-    it enters the ranks' losses as its ``share``."""
+    """The whole tensor of every rank's slab along ``axis``, on every rank
+    (slabs of unequal heights padded to the largest for the all-gather,
+    then trimmed). Differentiable: a rank's slab gets the sum over the
+    ranks of their gradients of its rows, so a term that every rank
+    computes whole from it enters the ranks' losses as its ``share``."""
     if not active():
         return x
-    return torch.cat(dist.all_gather(x).unbind(0), dim=axis)
+    sizes = [size for _, size in slabs(x.shape[axis])]
+    largest = max(sizes)
+    if x.shape[axis] < largest:
+        pad = list(x.shape)
+        pad[axis] = largest - x.shape[axis]
+        x = torch.cat([x, x.new_zeros(pad)], dim=axis)
+    parts = dist.all_gather(x).unbind(0)
+    return torch.cat([part.narrow(axis, 0, size)
+                      for part, size in zip(parts, sizes)], dim=axis)
 
 
 # ------------------------------------------------------------- reductions
@@ -311,8 +414,8 @@ def mean(x: torch.Tensor, dim=None, axis: int = -2) -> torch.Tensor:
     dims = range(x.ndim) if dim is None else (
         (dim,) if isinstance(dim, int) else dim)
     dims = {d % x.ndim for d in dims}
-    total = math.prod(x.shape[d] for d in dims) * count() \
-        if axis % x.ndim in dims else math.prod(x.shape[d] for d in dims)
+    total = math.prod(global_rows(x.shape[d]) if d == axis % x.ndim
+                      else x.shape[d] for d in dims)
     summed = x.sum() if dim is None else x.sum(tuple(sorted(dims)))
     return summed / total
 

@@ -162,13 +162,17 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
 
     @torch.no_grad()
     def eval_step(modules, batch, feats=None, sem_probs=None, depth=None):
-        maps = predict(modules, batch, feats, sem_probs, depth)
-        if not spatial.active():
-            return score(maps, batch)
-        # the slabs' maps, whole, scored on rank 0: the fusion's votes and
-        # center NMS are global
-        maps = {key: None if value is None else spatial.gather_rows(value)
-                for key, value in maps.items()}
+        height = (batch["frames"].shape[2] if "frames" in batch
+                  else batch["image"].shape[1])
+        with spatial.image(height):
+            maps = predict(modules, batch, feats, sem_probs, depth)
+            if not spatial.active():
+                return score(maps, batch)
+            # the slabs' maps, whole, scored on rank 0: the fusion's votes
+            # and center NMS are global
+            maps = {key: None if value is None
+                    else spatial.gather_rows(value)
+                    for key, value in maps.items()}
         if not parallel.is_lead():
             return None, None
         with parallel.replicated():
@@ -289,8 +293,9 @@ def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
     rgb_tgt = maybe_normalize(mixup["rgb_tgt"], mean, std)
     rgb_src = maybe_normalize(mixup["rgb_src"], mean, std)
     semantic_src = mixup["semantic_src"].long()
-    sem_pred = spatial.gather_rows(teacher_labels(
-        teacher, spatial.rows_of(rgb_tgt, axis=1)), axis=1)
+    with spatial.image(rgb_tgt.shape[1]):
+        sem_pred = spatial.gather_rows(teacher_labels(
+            teacher, spatial.rows_of(rgb_tgt, axis=1)), axis=1)
     if geom_augment:
         rgb_w, sem_w = grid_sample_pair_pre(rgb_tgt, sem_pred[..., None],
                                             mixup["prewarp"])
@@ -373,14 +378,10 @@ def _blend_ema(state: AdaptState, do_ema: bool) -> None:
             e.copy_(alpha * e + (1.0 - alpha) * p)
 
 
-def _check_row_split(student, batch) -> None:
-    """Raises where a row split cannot run the step: the flow head (its
-    three-frame pass and auto-mask are not split yet), or a height that
-    does not split into aligned slabs."""
-    if student.flow_head is not None:
-        raise NotImplementedError(
-            "spatial sharding (tpu.spatial_shard) does not run the flow "
-            "head (model.make_sflow) yet")
+def _check_row_split(batch) -> None:
+    """Raises ValueError, on every rank before any collective, where a
+    height of the batch does not split into slabs of whole 32-row
+    blocks."""
     for domain in ("target", "source", "target_replay"):
         if domain in batch:
             spatial.check_height(batch[domain]["frames"].shape[2])
@@ -434,8 +435,12 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     and its share of every loss; the pose net runs whole on every rank;
     the gradients are summed over the ranks before Adam; the metrics are
     the global values on every rank; rank 0 alone gets the eval results
-    and stats (the others None). Heights must split into slabs of a
-    multiple of 32 rows (else ValueError); the flow head raises.
+    and stats (the others None). Every height must split into slabs of
+    whole 32-row blocks, at least one a rank (else ValueError). With a
+    flow head the triplets' rows go through the encoder in one pass, and
+    the pose net and the flow head run on the whole frames on every rank:
+    the motion maps are whole everywhere, the photometric loss takes its
+    rows of them, and the flow regularizers enter as shares.
     """
     weights = {k: v for k, v in cfg.losses.weights.items()}
     num_scales = cfg.depth.num_recon_scales
@@ -469,34 +474,95 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         flow smoothness and sparsity, or None without a flow head),
         transformations, feats (the frame-t encoder pyramid), depth (of
         frame t) and motion (the object-motion pair, or None). In a row
-        split frame t's rows go through the encoder and the losses, the
-        whole frames through the pose net and the warp."""
-        if student.flow_head is not None:
-            feats_t, *feats_nb = encode_frames(student.backbone_po_depth,
-                                               images)
+        split the triplet's rows go through the encoder (frame t's alone
+        without a flow head) and frame t's through the losses; the whole
+        frames, with their gathered depth, go through the pose net, the
+        flow head and the warp on every rank."""
+        with spatial.image(images[0].shape[-2]):
+            if student.flow_head is not None:
+                feats_t, *feats_nb = encode_frames(
+                    student.backbone_po_depth,
+                    [spatial.rows_of(image) for image in images])
+            else:
+                feats_t = student.backbone_po_depth(
+                    spatial.rows_of(images[0]))
+                feats_nb = None
+            fwd = depth_forward(student, images, feats_t, feats_nb)
+            # the motion maps are whole on every rank: the flow losses
+            # enter each rank's loss as its share
+            motion = fwd["object_motion_maps"]
+            return {
+                "recon": reconstruction_loss(
+                    camera, images, fwd["depth"], fwd["transformations"],
+                    motion, num_scales=num_scales, per_sample=per_sample,
+                    noise=noise, dtype=loss_dtype),
+                "smth": edge_aware_smoothness_loss(
+                    images[0], fwd["disparity"], per_sample=per_sample),
+                "flow": None if motion is None else (
+                    spatial.share(flow_smoothness_loss(motion)),
+                    spatial.share(flow_sparsity_loss(motion))),
+                "transformations": fwd["transformations"],
+                "feats": feats_t, "depth": fwd["depth"], "motion": motion}
+
+    def semantic_losses(state, batch, source, source_feats, losses):
+        """The source and mixup semantic losses into ``losses``; called
+        inside ``spatial.image`` of the source height."""
+        student = state.student
+        num_source = source_feats[0].shape[0]
+        mix_feats = None
+        if num_mixup > 0:
+            if fused_mixup:
+                mixup = compose_mixup(state.teacher, batch["mixup"],
+                                      mixup_groups, cut_cfg, geom_augment,
+                                      mean, std)
+            else:
+                mixup = (batch["mixup"]["rgb"], batch["mixup"]["semantic"])
+            mix_height = mixup[0].shape[1]
+            with spatial.image(mix_height):
+                mix_rgb, mix_semantic = (spatial.rows_of(x, axis=1)
+                                         for x in mixup)
+                mix_feats = student.backbone_po_depth(
+                    _nchw_images(mix_rgb, mean, std))
+        if mix_feats is not None \
+                and mix_height == source["frames"].shape[2] \
+                and mix_feats[0].shape[1:] == source_feats[0].shape[1:]:
+            # One semantic-head pass over source and mixup: the head has
+            # no normalization layer, so batching changes nothing.
+            sem_cat = student.semantic_head(
+                [torch.cat([fs, fm]) for fs, fm in zip(source_feats,
+                                                       mix_feats)])
+            sem_src, sem_mix = sem_cat[:num_source], sem_cat[num_source:]
         else:
-            feats_t = student.backbone_po_depth(spatial.rows_of(images[0]))
-            feats_nb = None
-        fwd = depth_forward(student, images, feats_t, feats_nb)
-        motion = fwd["object_motion_maps"]
-        return {
-            "recon": reconstruction_loss(
-                camera, images, fwd["depth"], fwd["transformations"],
-                motion, num_scales=num_scales, per_sample=per_sample,
-                noise=noise, dtype=loss_dtype),
-            "smth": edge_aware_smoothness_loss(images[0], fwd["disparity"],
-                                               per_sample=per_sample),
-            "flow": None if motion is None else (
-                flow_smoothness_loss(motion), flow_sparsity_loss(motion)),
-            "transformations": fwd["transformations"], "feats": feats_t,
-            "depth": fwd["depth"], "motion": motion}
+            sem_src = student.semantic_head(source_feats)
+            sem_mix = None
+            if mix_feats is not None:
+                with spatial.image(mix_height):
+                    sem_mix = student.semantic_head(mix_feats)
+        losses["semantic_source"] = sem_loss(
+            sem_src, source["semantic"], source["semantic_weights"])
+        if sem_mix is None:
+            return
+        start = 0
+        with spatial.image(mix_height):
+            for strategy, count in mixup_groups:
+                sl = slice(start, start + count)
+                start += count
+                if weights.get(f"semantic_{strategy}") is None:
+                    continue
+                losses[f"semantic_{strategy}"] = sem_loss(
+                    sem_mix[sl], mix_semantic[sl],
+                    torch.ones(mix_semantic[sl].shape,
+                               device=sem_mix.device))
 
     def loss_fn(state: AdaptState, batch, noise, reuse_feats, reuse_depth):
         student = state.student
         use_flow = student.flow_head is not None
         losses: Dict[str, torch.Tensor] = {}
         aux: Dict[str, Any] = {}
-        source = spatial.place_rows(batch["source"])
+        source_height = batch["source"]["frames"].shape[2]
+        target_height = batch["target"]["frames"].shape[2]
+        with spatial.image(source_height):
+            source = spatial.place_rows(batch["source"])
         source_images = _triplets(source["frames"], mean, std)
         num_source = source_images[0].shape[0]
 
@@ -581,9 +647,11 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                 losses["flow_sparsity"] = sum(
                     d["flow"][1] * c for d, c in domains) / total_images
         else:
-            target_feats = apply_encoder(
-                student.backbone_po_depth, maybe_normalize(spatial.rows_of(
-                    batch["target"]["frames"][:, 0], axis=1), mean, std))
+            with spatial.image(target_height):
+                target_feats = apply_encoder(
+                    student.backbone_po_depth, maybe_normalize(
+                        spatial.rows_of(batch["target"]["frames"][:, 0],
+                                        axis=1), mean, std))
             target_depth = None
 
         if reuse_feats:
@@ -592,63 +660,28 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                 aux["eval_depth"] = target_depth.detach()
 
         # ---- source supervised panoptic
-        if source_feats is None:
-            source_feats = student.backbone_po_depth(
-                spatial.rows_of(source_images[0]))
-
-        if student.semantic_head is not None:
-            mix_feats = None
-            if num_mixup > 0:
-                if fused_mixup:
-                    mixup = compose_mixup(state.teacher, batch["mixup"],
-                                          mixup_groups, cut_cfg,
-                                          geom_augment, mean, std)
-                else:
-                    mixup = (batch["mixup"]["rgb"],
-                             batch["mixup"]["semantic"])
-                mix_rgb, mix_semantic = (spatial.rows_of(x, axis=1)
-                                         for x in mixup)
-                mix_feats = student.backbone_po_depth(
-                    _nchw_images(mix_rgb, mean, std))
-            if mix_feats is not None \
-                    and mix_feats[0].shape[1:] == source_feats[0].shape[1:]:
-                # One semantic-head pass over source and mixup: the head
-                # has no normalization layer, so batching changes nothing.
-                sem_cat = student.semantic_head(
-                    [torch.cat([fs, fm]) for fs, fm in zip(source_feats,
-                                                           mix_feats)])
-                sem_src, sem_mix = sem_cat[:num_source], sem_cat[num_source:]
-            else:
-                sem_src = student.semantic_head(source_feats)
-                sem_mix = (student.semantic_head(mix_feats)
-                           if mix_feats is not None else None)
-            losses["semantic_source"] = sem_loss(
-                sem_src, source["semantic"], source["semantic_weights"])
-            if sem_mix is not None:
-                start = 0
-                for strategy, count in mixup_groups:
-                    sl = slice(start, start + count)
-                    start += count
-                    if weights.get(f"semantic_{strategy}") is None:
-                        continue
-                    losses[f"semantic_{strategy}"] = sem_loss(
-                        sem_mix[sl], mix_semantic[sl],
-                        torch.ones(mix_semantic[sl].shape,
-                                   device=sem_mix.device))
-
-        if student.instance_head is not None:
-            center_src, offset_src, thing_mask_src = student.instance_head(
-                source_feats)
-            losses["center_source"] = center_loss(_nhwc(center_src),
-                                                  source["center"])
-            losses["offset_source"] = offset_loss(_nhwc(offset_src),
-                                                  source["offset"])
-            if thing_mask_src is not None \
-                    and source.get("thing_mask") is not None:
-                losses["thing_mask_source"] = binary_mask_loss(
-                    thing_mask_src, source["thing_mask"])
-            if "instance_head" in state.ema_modules \
-                    and batch["target"].get("center_ema") is not None:
+        with spatial.image(source_height):
+            if source_feats is None:
+                source_feats = student.backbone_po_depth(
+                    spatial.rows_of(source_images[0]))
+            if student.semantic_head is not None:
+                semantic_losses(state, batch, source, source_feats,
+                                losses)
+            if student.instance_head is not None:
+                center_src, offset_src, thing_mask_src = \
+                    student.instance_head(source_feats)
+                losses["center_source"] = center_loss(_nhwc(center_src),
+                                                      source["center"])
+                losses["offset_source"] = offset_loss(_nhwc(offset_src),
+                                                      source["offset"])
+                if thing_mask_src is not None \
+                        and source.get("thing_mask") is not None:
+                    losses["thing_mask_source"] = binary_mask_loss(
+                        thing_mask_src, source["thing_mask"])
+        if student.instance_head is not None \
+                and "instance_head" in state.ema_modules \
+                and batch["target"].get("center_ema") is not None:
+            with spatial.image(target_height):
                 target_rows = spatial.place_rows(batch["target"])
                 center_t, offset_t, _ = student.instance_head(target_feats)
                 losses["center_ema"] = ema_consistency_loss(
@@ -664,8 +697,9 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
 
         # Replay-buffer features: the target frame's last-stage features,
         # mean-pooled and L2-normalized (adapt.py:756-765).
-        pooled = spatial.gather_rows(target_feats[-1].detach()).float() \
-            .mean(dim=(2, 3))
+        with spatial.image(target_height):
+            pooled = spatial.gather_rows(target_feats[-1].detach()).float() \
+                .mean(dim=(2, 3))
         aux["image_features"] = pooled / torch.clamp(
             torch.linalg.vector_norm(pooled, dim=1, keepdim=True),
             min=1e-12)
@@ -680,7 +714,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         reuse_depth = (reuse_feats and student.depth_head is not None
                        and "depth_head" not in state.ema_modules)
         if spatial.active():
-            _check_row_split(student, batch)
+            _check_row_split(batch)
         if noise is None:
             def noise(shape):
                 return torch.randn(shape, generator=state.generator,
@@ -737,7 +771,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                    "target_skipped": skip, **values}
         if eval_forward is not None:
             results = eval_out[0]
-            if "object_motion_map" in aux:
+            if results is not None and "object_motion_map" in aux:
                 # (2, B, H, W, 3), the pair [-flow(t-1, t), flow(t, t+1)]
                 results["object_motion_map"] = aux["object_motion_map"]
             return metrics, aux["image_features"], results, eval_out[1]

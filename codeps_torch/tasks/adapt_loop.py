@@ -166,10 +166,6 @@ class AdaptationRunner:
         # spatial sharding: rank 0 leads, the other ranks follow
         self.row_split = bool(cfg.tpu.spatial_shard) \
             and parallel.world_size() > 1
-        if self.row_split and modules.flow_head is not None:
-            raise NotImplementedError(
-                "spatial sharding (tpu.spatial_shard) over several ranks "
-                "does not run the flow head (model.make_sflow) yet")
         # host seconds of each broadcast of a batch, and (on the ranks that
         # follow) of each step
         self.row_times: Dict[str, List[float]] = {"broadcast": [],

@@ -33,6 +33,8 @@ def encode_frames(encoder: nn.Module, images: Sequence[torch.Tensor]
     In train mode the encoder's BatchNorm takes its statistics over all
     B*N images: the frames are coupled through them, in the forward and
     in the gradient, so they must go through together with autograd on.
+    In a row split the frames are this rank's slabs, and the statistics
+    are those of every rank's rows of all of them.
     """
     batch, count = images[0].shape[0], len(images)
     flat = torch.stack(list(images), dim=1).flatten(0, 1)
@@ -57,10 +59,13 @@ def depth_forward(modules, images: Sequence[torch.Tensor],
     the flow head runs once per pair: its auto-mask thresholds at the
     mean over the batch it is given, which the 2B fold would change.
 
-    Inside a row split (``parallel/spatial.py``) ``feats_center`` and the
-    depth are this rank's slab of rows, and the pose net runs on the
-    whole frames on every rank (``spatial.replicated``): its spatial mean
-    and its train-mode BatchNorm over the pair batch stay exact.
+    Inside a row split (``parallel/spatial.py``) ``feats_center``,
+    ``feats_neighbors`` and the depth are this rank's slab of rows, and
+    the pose net and the flow head run on the whole frames on every rank
+    (``spatial.replicated``; with the flow head, the RGB-D input's depth
+    gathered): the pose net's spatial mean and train-mode BatchNorm over
+    the pair batch, and the auto-mask's mean, stay exact, and the motion
+    maps come out whole on every rank.
 
     Args:
       images: [img_t, img_tm1, img_tp1], each (B, 3, H, W), whole.
@@ -79,13 +84,14 @@ def depth_forward(modules, images: Sequence[torch.Tensor],
         # the depth head has no normalization layer: the neighbours'
         # depth, detached anyway, needs no graph
         with torch.no_grad():
-            depths = [depth_t.detach()] + [modules.depth_head(f)[0]
-                                           for f in feats_neighbors]
+            depths = [spatial.gather_rows(d) for d in [depth_t.detach()] + [
+                modules.depth_head(f)[0] for f in feats_neighbors]]
         images = [torch.cat([img, d], dim=1)
                   for img, d in zip(images, depths)]
     pair_bwd = torch.cat([images[1], images[0]], dim=1)
     pair_fwd = torch.cat([images[0], images[2]], dim=1)
     batch = images[0].shape[0]
+    motion = None
     with spatial.replicated():
         pose_feats = modules.backbone_pose_sflow(
             torch.cat([pair_bwd, pair_fwd], dim=0))
@@ -93,10 +99,9 @@ def depth_forward(modules, images: Sequence[torch.Tensor],
         feats_fwd = [f[batch:] for f in pose_feats]
         t_bwd = modules.pose_head(feats_bwd, invert_pose=True)
         t_fwd = modules.pose_head(feats_fwd, invert_pose=False)
-    motion = None
-    if use_flow:
-        motion = [-modules.flow_head(feats_bwd),
-                  modules.flow_head(feats_fwd)]
+        if use_flow:
+            motion = [-modules.flow_head(feats_bwd),
+                      modules.flow_head(feats_fwd)]
     return {"depth": depth_t, "disparity": disp_t,
             "transformations": [t_bwd, t_fwd],
             "object_motion_maps": motion}

@@ -35,6 +35,9 @@ FROZEN = ("backbone_po_depth",)
 # global batches: the step's 4 rows (2 a rank), the parts' 4
 STEP_ROWS = 4
 BN_SHAPE = (4, 3, 5, 6)
+# each rank's rows of BN_SHAPE's height in the uneven check: a row
+# split's slabs of unequal heights, 3 + 2 rows
+UNEVEN_ROWS = (slice(0, 3), slice(3, 5))
 SEM_SHAPE = (4, 5, 8, 12)
 TOP_K = 0.2
 CUDA_BN_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
@@ -251,7 +254,10 @@ def scenario_parts(out):
     from codeps_torch.io.logging import init_logging
     x, grad_out, probs, target, weights = parts_inputs()
     rows = parallel.shard_rows(BN_SHAPE[0])
+    slab = UNEVEN_ROWS[parallel.rank()]
     result = {"batch_norm": run_batch_norm(x[rows], grad_out[rows]),
+              "batch_norm_rows": run_batch_norm(x[..., slab, :],
+                                                grad_out[..., slab, :]),
               "semantic": run_semantic_loss(probs[rows], target[rows],
                                             weights[rows])}
     # only rank 0 writes: each rank names its own files
@@ -325,17 +331,23 @@ def scenario_jax(out):
 
 
 def scenario_parts_cuda(out):
-    """``parts``' BatchNorm (float64, float32, bfloat16 input) and top-k
-    loss on this rank's rows with every rank on card 0 (the group's gloo
-    carries CUDA tensors): the SyncBN kernels' path."""
+    """``parts``' BatchNorm (float64, float32, bfloat16 input; also on
+    slabs of unequal heights) and top-k loss on this rank's rows with
+    every rank on card 0 (the group's gloo carries CUDA tensors): the
+    SyncBN kernels' path."""
     from codeps_torch import parallel
     x, grad_out, probs, target, weights = (t.cuda()
                                            for t in parts_inputs())
     rows = parallel.shard_rows(BN_SHAPE[0])
+    slab = UNEVEN_ROWS[parallel.rank()]
     return {"batch_norm": {
         str(dtype): [t.cpu() for t in run_batch_norm(
             x[rows].to(dtype), grad_out[rows].to(dtype))]
         for dtype in CUDA_BN_DTYPES},
+        "batch_norm_rows": {
+            str(dtype): [t.cpu() for t in run_batch_norm(
+                x[..., slab, :].to(dtype), grad_out[..., slab, :].to(dtype))]
+            for dtype in CUDA_BN_DTYPES},
         "semantic": [t.cpu() for t in run_semantic_loss(
             probs[rows], target[rows], weights[rows])]}
 

@@ -33,6 +33,17 @@ EMA = ("semantic_head",)
 LIVE = ("backbone_pose_sflow", "depth_head", "pose_head", "semantic_head")
 HALO_CASES = ((1, 1, "zeros"), (3, 2, "zeros"), (1, 0, "-inf"),
               (1, 1, "reflect"), (2, 1, "replicate"), (0, 1, "zeros"))
+# uneven slabs: 96 rows split 2 + 1 blocks over 2 ranks
+UNEVEN_H = 96
+# (image height, rows of the tensor, cases): at stride 32 of 96 rows the
+# slabs are 2 + 1 rows, and a reflection at the image's bottom edge
+# reaches into rank 0's rows
+HALO_SIZES = ((H, H, HALO_CASES),
+              (UNEVEN_H, UNEVEN_H // 32, ((1, 1, "zeros"), (1, 0, "-inf"),
+                                          (1, 1, "reflect"),
+                                          (1, 1, "replicate"))),
+              (UNEVEN_H, UNEVEN_H // 16, ((2, 2, "reflect"),
+                                          (2, 1, "zeros"))))
 RUNNER_FRAMES = 3
 # seconds a rank waits for the JAX step's inputs
 TIMEOUT = 900
@@ -169,69 +180,82 @@ def run_steps(modules, step, batches, frozen=FROZEN, noise=None):
 
 # ------------------------------------------------------------- checks
 
+def _slab(image_height, rows, rank, ranks):
+    """Rank ``rank``'s rows of a tensor of ``rows`` rows, a level of an
+    image of ``image_height`` rows split over ``ranks``."""
+    from codeps_torch.parallel import spatial
+    first, size = spatial.slab_rows(image_height, ranks, rank)
+    return slice(first * rows // image_height,
+                 (first + size) * rows // image_height)
+
+
 def check_halo(out):
     """``halo_rows`` and ``gather_rows``, forward and backward, against
     the padding and concatenation of the whole tensor in one process, in
-    float64: every rank's output and input gradient, with the loss of
-    rank r its output times the weights ``weights[r]``."""
+    float64, on even slabs (64 rows) and on the uneven slabs of 96 rows
+    at strides 32 and 16: every rank's output and input gradient, with
+    the loss of rank r its output times the weights ``weights[r]``."""
     import torch.nn.functional as F
     from codeps_torch import parallel
     from codeps_torch.parallel import spatial
     ranks, rank = parallel.world_size(), parallel.rank()
     g = torch.Generator().manual_seed(5)
-    x = torch.randn(2, 3, H, 5, generator=g, dtype=torch.float64)
-    rows = H // ranks
     result = {}
-    for top, bottom, edge in HALO_CASES:
-        weights = torch.randn(ranks, 2, 3, rows + top + bottom, 5,
-                              generator=g, dtype=torch.float64)
-        with spatial.rows():
+    for image_height, rows, cases in HALO_SIZES:
+        x = torch.randn(2, 3, rows, 5, generator=g, dtype=torch.float64)
+        slabs = [_slab(image_height, rows, r, ranks) for r in range(ranks)]
+        mine_rows = slabs[rank]
+        for top, bottom, edge in cases:
+            weights = [torch.randn(2, 3, sl.stop - sl.start + top + bottom,
+                                   5, generator=g, dtype=torch.float64)
+                       for sl in slabs]
+            with spatial.rows(), spatial.image(image_height):
+                mine = spatial.rows_of(x).clone().requires_grad_(True)
+                got = spatial.halo_rows(mine, top, bottom, edge)
+                finite = torch.where(torch.isfinite(got), got, 0.0)
+                (finite * weights[rank]).sum().backward()
+            whole = x.clone().requires_grad_(True)
+            mode = {"zeros": "constant", "-inf": "constant"}.get(edge, edge)
+            padded = F.pad(whole, (0, 0, top, bottom), mode=mode,
+                           value=float("-inf") if edge == "-inf" else 0.0) \
+                if mode == "constant" else F.pad(whole, (0, 0, top, bottom),
+                                                 mode=mode)
+            loss = 0.0
+            for sl, w in zip(slabs, weights):
+                part = padded[..., sl.start:sl.stop + top + bottom, :]
+                loss = loss + (torch.where(torch.isfinite(part), part, 0.0)
+                               * w).sum()
+            loss.backward()
+            expect = padded[..., mine_rows.start:mine_rows.stop + top
+                            + bottom, :]
+            result[f"halo {rows}/{image_height} {top} {bottom} {edge}"] = {
+                "out": float((torch.where(torch.isfinite(got), got, 0.0)
+                              - torch.where(torch.isfinite(expect), expect,
+                                            0.0)).abs().max()),
+                "inf_equal": bool(torch.equal(torch.isinf(got),
+                                              torch.isinf(expect))),
+                "grad": relative(mine.grad, whole.grad[..., mine_rows, :])}
+        weights = torch.randn(ranks, *x.shape, generator=g,
+                              dtype=torch.float64)
+        with spatial.rows(), spatial.image(image_height):
             mine = spatial.rows_of(x).clone().requires_grad_(True)
-            got = spatial.halo_rows(mine, top, bottom, edge)
-            finite = torch.where(torch.isfinite(got), got, 0.0)
-            (finite * weights[rank]).sum().backward()
-        whole = x.clone().requires_grad_(True)
-        mode = {"zeros": "constant", "-inf": "constant"}.get(edge, edge)
-        padded = F.pad(whole, (0, 0, top, bottom), mode=mode,
-                       value=float("-inf") if edge == "-inf" else 0.0) \
-            if mode == "constant" else F.pad(whole, (0, 0, top, bottom),
-                                             mode=mode)
-        loss = 0.0
-        for r in range(ranks):
-            part = padded[..., r * rows:r * rows + rows + top + bottom, :]
-            loss = loss + (torch.where(torch.isfinite(part), part, 0.0)
-                           * weights[r]).sum()
-        loss.backward()
-        expect = padded[..., rank * rows:rank * rows + rows + top + bottom,
-                        :]
-        result[f"halo {top} {bottom} {edge}"] = {
-            "out": float((torch.where(torch.isfinite(got), got, 0.0)
-                          - torch.where(torch.isfinite(expect), expect, 0.0))
-                         .abs().max()),
-            "inf_equal": bool(torch.equal(torch.isinf(got),
-                                          torch.isinf(expect))),
-            "grad": relative(mine.grad,
-                             whole.grad[..., rank * rows:(rank + 1) * rows,
-                                        :])}
-    weights = torch.randn(ranks, *x.shape, generator=g, dtype=torch.float64)
-    with spatial.rows():
-        mine = spatial.rows_of(x).clone().requires_grad_(True)
-        got = spatial.gather_rows(mine)
-        (got * weights[rank]).sum().backward()
-    result["gather"] = {
-        "out": float((got - x).abs().max()),
-        "grad": relative(mine.grad, weights.sum(0)[..., rank * rows:
-                                                   (rank + 1) * rows, :])}
+            got = spatial.gather_rows(mine)
+            (got * weights[rank]).sum().backward()
+        result[f"gather {rows}/{image_height}"] = {
+            "out": float((got - x).abs().max()),
+            "grad": relative(mine.grad, weights.sum(0)[..., mine_rows, :])}
     out["halo"] = result
 
 
-def _compare_forward(fn, inputs, params, rows_axes, out_axes):
+def _compare_forward(fn, inputs, params, rows_axes, out_axes,
+                     height=H):
     """``fn(*inputs)`` on this rank's rows (inputs cut along
     ``rows_axes``, None for a whole input) against one process: the
     relative distance of each output (gathered along ``out_axes``, None
     for a value that is a share) and of the gradient of a seeded
     weighted sum of the outputs by the inputs and by ``params``
-    (summed over the ranks)."""
+    (summed over the ranks). The slabs are those of an image of
+    ``height`` rows."""
     from codeps_torch import parallel
     from codeps_torch.parallel import spatial
     g = torch.Generator().manual_seed(11)
@@ -246,7 +270,7 @@ def _compare_forward(fn, inputs, params, rows_axes, out_axes):
         ref_in_grad = [x.grad for x in ref_in]
         for p in params:
             p.grad = None
-    with spatial.rows():
+    with spatial.rows(), spatial.image(height):
         mine = [(x if axis is None else spatial.rows_of(x, axis))
                 .clone().requires_grad_(x.is_floating_point())
                 for x, axis in zip(inputs, rows_axes)]
@@ -278,19 +302,60 @@ def _compare_forward(fn, inputs, params, rows_axes, out_axes):
     return result
 
 
+def _pose():
+    pose = torch.eye(4, dtype=torch.float64).repeat(2, 1, 1)
+    pose[:, :3, 3] = torch.tensor([0.1, -0.05, 0.3], dtype=torch.float64)
+    return pose
+
+
+def _local(rows):
+    """A slab's row count at a level of ``rows`` global rows (all of them
+    in one process)."""
+    from codeps_torch.parallel import spatial
+    slab = spatial.row_slab(rows)
+    return slab.stop - slab.start
+
+
+def _resizes_and_warp(result, height, g):
+    """The bilinear and nearest resizes and the warp on the slabs of an
+    image of ``height`` rows, against one process."""
+    from codeps_torch.geometry.warp import warp_image
+    from codeps_torch.ops.resize import (resize_bilinear_nchw,
+                                         resize_nearest_nchw)
+    small = torch.randn(2, 4, height // 2, 24, generator=g,
+                        dtype=torch.float64)
+    tag = "" if height == H else f" {height} rows"
+    for size, align in (((height, 48), True), ((height, 48), False),
+                        ((height // 4, 12), False),
+                        ((height // 2, 40), True)):
+        # a row split's output size is its slab's
+        result[f"resize {size} {align}{tag}"] = _compare_forward(
+            lambda x, s=size, a=align: [resize_bilinear_nchw(
+                x, (_local(s[0]), s[1]), a)],
+            [small], [], [-2], [-2], height)
+    result[f"resize nearest{tag}"] = _compare_forward(
+        lambda x: [resize_nearest_nchw(x, (_local(height // 8), 10))],
+        [small], [], [-2], [-2], height)
+    camera = torch.tensor([[30.0, 30.0, W / 2, height / 2]] * 2,
+                          dtype=torch.float64)
+    depth = 1.0 + 20 * torch.rand(2, 1, height, W, generator=g,
+                                  dtype=torch.float64)
+    neighbour = torch.randn(2, 3, height, W, generator=g,
+                            dtype=torch.float64)
+    result[f"warp{tag}"] = _compare_forward(
+        lambda d: [warp_image(camera, neighbour, d, _pose())], [depth], [],
+        [-2], [-2], height)
+
+
 def check_modules(out):
     """Each ported module and loss on 2 ranks against one process, in
     float64 (the losses' float32 parts as they are)."""
-    from codeps_torch.geometry.warp import warp_image
     from codeps_torch.losses import (binary_mask_loss, center_loss,
                                      edge_aware_smoothness_loss, offset_loss,
                                      reconstruction_loss, semantic_loss)
     from codeps_torch.models.heads import (DepthHead, InstanceHead,
                                            SemanticHead)
     from codeps_torch.models.resnet import keep_running_stats, make_encoder
-    from codeps_torch.ops.resize import (resize_bilinear_nchw,
-                                         resize_nearest_nchw)
-    from codeps_torch.parallel import spatial
     torch.manual_seed(0)
     g = torch.Generator().manual_seed(1)
     image = torch.randn(2, 3, H, W, generator=g, dtype=torch.float64)
@@ -322,30 +387,16 @@ def check_modules(out):
         result[name] = _compare_forward(
             lambda *f, m=module, c=call: c(m, *f), feats,
             list(module.parameters()), [-2] * 5, [-2] * 3)
-    small = torch.randn(2, 4, H // 2, 24, generator=g, dtype=torch.float64)
-    for size, align in (((H, 48), True), ((H, 48), False), ((H // 4, 12),
-                                                           False),
-                        ((H // 2, 40), True)):
-        # a row split's output size is its slab's
-        result[f"resize {size} {align}"] = _compare_forward(
-            lambda x, s=size, a=align: [resize_bilinear_nchw(
-                x, (s[0] // spatial.count(), s[1]), a)],
-            [small], [], [-2], [-2])
-    result["resize nearest"] = _compare_forward(
-        lambda x: [resize_nearest_nchw(x, (H // 8 // spatial.count(), 10))],
-        [small], [], [-2], [-2])
-
+    for height in (H, UNEVEN_H):
+        # the resizes and the warp on even slabs and on 2 + 1 blocks
+        _resizes_and_warp(result, height, g)
     camera = torch.tensor([[30.0, 30.0, W / 2, H / 2]] * 2,
                           dtype=torch.float64)
-    pose = torch.eye(4, dtype=torch.float64).repeat(2, 1, 1)
-    pose[:, :3, 3] = torch.tensor([0.1, -0.05, 0.3], dtype=torch.float64)
+    pose = _pose()
     depth = 1.0 + 20 * torch.rand(2, 1, H, W, generator=g,
                                   dtype=torch.float64)
     neighbours = [torch.randn(2, 3, H, W, generator=g, dtype=torch.float64)
                   for _ in range(2)]
-    result["warp"] = _compare_forward(
-        lambda d: [warp_image(camera, neighbours[0], d, pose)], [depth], [],
-        [-2], [-2])
     noise = [torch.randn(2, 2, H >> s, W >> s, generator=g)
              for s in range(5)]
 
@@ -401,9 +452,11 @@ def _step_distances(ours, ref):
                                  relative(mine["features"],
                                           theirs["features"]))
         if theirs["results"] is not None:
-            for key in ("depth", "semantic_soft", "center", "offset"):
-                result["eval_maps"] = max(result["eval_maps"], relative(
-                    mine["results"][key], theirs["results"][key]))
+            for key in ("depth", "semantic_soft", "center", "offset",
+                        "object_motion_map"):
+                if key in theirs["results"]:
+                    result["eval_maps"] = max(result["eval_maps"], relative(
+                        mine["results"][key], theirs["results"][key]))
             result["sem_conf_equal"] &= bool(torch.equal(
                 mine["stats"]["sem_conf"], theirs["stats"]["sem_conf"]))
             result["panoptic_equal"] &= bool(torch.equal(
@@ -419,22 +472,37 @@ def _step_distances(ours, ref):
     return result
 
 
+# the float64 step's variants: (name, fused mixup, frozen modules, steps,
+# height, scene flow)
+STEP_VARIANTS = (
+    ("published", True, FROZEN, 2, H, False),
+    ("live encoder", False, ("instance_head",), 1, H, False),
+    # the published step on 2 + 1 blocks, target and source at 96 rows
+    ("uneven rows", True, FROZEN, 1, UNEVEN_H, False),
+    # the flow head, with a live depth encoder: the triplets' pass takes
+    # its train-mode statistics over every rank's rows of all three frames
+    ("flow", False, ("instance_head",), 1, H, True))
+
+
 def check_step(out):
     """The float64 step on 2 ranks against one process (rank 0, under
-    ``replicated()``) from the same weights, batches and generator state:
-    the published freezing with the fused cut mixup for 2 steps, and a
-    live depth encoder (train-mode BatchNorm over the rows) for one."""
+    ``replicated()``) from the same weights, batches and generator state,
+    for each of STEP_VARIANTS: the published freezing with the fused cut
+    mixup for 2 steps, a live depth encoder (train-mode BatchNorm over
+    the rows), the published step on uneven slabs, and the scene-flow
+    head."""
     from codeps_torch import parallel
     from codeps_torch.parallel import spatial
     result = {}
-    for name, fused, frozen, count in (
-            ("published", True, FROZEN, 2),
-            ("live encoder", False, ("instance_head",), 1)):
+    for name, fused, frozen, count, height, flow in STEP_VARIANTS:
         cfg = step_config()
+        if flow:
+            cfg.model.make_sflow = True
         modules, step = build_step(cfg, fused=fused)
         modules = modules.double()
         start = copy.deepcopy(modules)
-        batches = [step_batch(30 + i, fused=fused) for i in range(count)]
+        batches = [step_batch(30 + i, fused=fused, height=height)
+                   for i in range(count)]
         with spatial.rows():
             ours = run_steps(modules, step, batches, frozen)
         steps = ours[0]
@@ -496,7 +564,7 @@ def check_jax_step(out, inputs_path):
     parallel.barrier()
 
 
-def runner_config(root, spatial_shard):
+def runner_config(root, spatial_shard, flow=False):
     from codeps_torch.config import gen_config
     cfg = gen_config(adapt=True, freeze=False)
     cfg.model.po_depth_net.params.nof_layers = 18
@@ -521,20 +589,21 @@ def runner_config(root, spatial_shard):
     cfg.losses.weights.semantic_class_mixup = 1.0
     cfg.tpu.compute_dtype = "float32"
     cfg.tpu.spatial_shard = spatial_shard
+    cfg.model.make_sflow = flow
     cfg.freeze()
     return cfg
 
 
-def stream(root, spatial_shard):
+def stream(root, spatial_shard, flow=False, frames=RUNNER_FRAMES):
     """(meters' values, buffer ids, the runner's step count) of a
-    RUNNER_FRAMES-frame stream of the synthetic KITTI-360 tree."""
+    ``frames``-frame stream of the synthetic KITTI-360 tree."""
     import random
     from codeps_torch.data.cityscapes import Cityscapes
     from codeps_torch.data.kitti_360 import Kitti360
     from codeps_torch.data.replay_buffer import ReplayBuffer
     from codeps_torch.models import build_modules, init_params
     from codeps_torch.tasks.adapt_loop import AdaptationRunner
-    cfg = runner_config(root, spatial_shard)
+    cfg = runner_config(root, spatial_shard, flow)
     target = Kitti360("sequence", cfg.dataset, return_depth=True,
                       sequences=["03"], sequence_reference_mode="rgb")
     buffer = ReplayBuffer(target, cfg.adapt, "train",
@@ -547,7 +616,7 @@ def stream(root, spatial_shard):
         modules.instance_head.center_head.net.conv.bias.fill_(0.12)
     runner = AdaptationRunner(cfg, modules, buffer, seed=1, device="cpu",
                               verbose=False)
-    meters = runner.run(max_frames=RUNNER_FRAMES)
+    meters = runner.run(max_frames=frames)
     values = {f"{group}.{name}": float(meter.value)
               for group in ("losses", "metrics")
               for name, meter in meters[group].items()
@@ -573,29 +642,33 @@ def check_runner(out):
 
 
 def check_raises(out):
-    """An indivisible height and the flow head under spatial sharding
-    raise, on every rank, before any collective."""
+    """Heights that do not split into whole 32-row blocks, at least one a
+    rank, raise ValueError on every rank before any collective; 96 rows
+    (2 + 1 blocks) and the flow head under spatial sharding do not."""
     from codeps_torch.parallel import spatial
+    from codeps_torch.tasks.state import make_adapt_state
     result = {}
     cfg = step_config()
     modules, step = build_step(cfg)
-    from codeps_torch.tasks.state import make_adapt_state
     state = make_adapt_state(modules, LR, ema_modules=EMA,
                              frozen_modules=FROZEN, device="cpu")
+    for height in (80, 32):
+        try:
+            with spatial.rows():
+                step(state, step_batch(40, np.uint8, height=height))
+            result[height] = "no error"
+        except ValueError as error:
+            result[height] = str(error)
     try:
         with spatial.rows():
-            step(state, step_batch(40, np.uint8, height=96))
-        result["height"] = "no error"
+            spatial.check_height(UNEVEN_H)
+        result[UNEVEN_H] = "no error"
     except ValueError as error:
-        result["height"] = str(error)
-    flow_cfg = runner_config(Path(out["root"]), True)
-    flow_cfg.defrost()
-    flow_cfg.model.make_sflow = True
+        result[UNEVEN_H] = str(error)
     try:
-        from codeps_torch.models import build_modules
-        from codeps_torch.tasks.adapt_loop import AdaptationRunner
-        AdaptationRunner(flow_cfg, build_modules(flow_cfg, NC, device="cpu"),
-                         None, device="cpu")
+        # the flow head streams under the split: rank 0 leads
+        result["flow_steps"] = stream(Path(out["root"]), True, flow=True,
+                                      frames=2)["steps"]
         result["flow"] = "no error"
     except NotImplementedError as error:
         result["flow"] = str(error)

@@ -112,6 +112,15 @@ def test_batch_norm_matches_one_process(parts):
     # the running statistics moved: with one rank's rows they would differ
     alone = worker.run_batch_norm(x[:2], grad_out[:2])
     assert _max_diff(alone[3], ref[3]) > 1e-3
+    # slabs of unequal heights (a row split's 3 + 2 rows): the global
+    # count, not N times the local one, in the forward and the backward
+    for rank, result in enumerate(ranks):
+        rows = worker.UNEVEN_ROWS[rank]
+        out, grad, mean, var = result["batch_norm_rows"]
+        assert _max_diff(out, ref[0][..., rows, :]) <= EXACT
+        assert _max_diff(grad, ref[1][..., rows, :]) <= EXACT
+        assert _max_diff(mean, ref[2]) <= EXACT
+        assert _max_diff(var, ref[3]) <= EXACT
 
 
 def test_top_k_semantic_loss_matches_one_process(parts):

@@ -5,7 +5,8 @@ parts_cuda``) and are held against one process on the same card, as
 runs torch's SyncBN kernels (``models/resnet._GlobalBatchNormCuda``),
 which have no CPU version, and the one process cuDNN's:
 
-  - BatchNorm over 2 ranks x 2 rows against one process on the 4:
+  - BatchNorm over 2 ranks x 2 rows, and over slabs of 3 + 2 of the 5
+    image rows (a row split's uneven slabs), against one process on all:
     output, input gradient and running statistics within 1e-12 in
     float64, 1e-5 in float32, and within two bfloat16 steps of the
     largest value for a bfloat16 input with float32 parameters (as under
@@ -52,6 +53,16 @@ def test_batch_norm_cuda_matches_one_process(parts_cuda, dtype):
         r_out, r_grad, r_mean, r_var = result["batch_norm"][str(dtype)]
         assert r_out.dtype == r_grad.dtype == dtype
         for ours, ref in ((r_out, out[rows]), (r_grad, grad[rows])):
+            tol = TOLERANCE.get(dtype) or 2 * 2.0 ** -7 * float(
+                ref.abs().max())
+            assert _max_diff(ours, ref) <= tol
+        assert _max_diff(r_mean, mean) <= STAT_TOLERANCE[dtype]
+        assert _max_diff(r_var, var) <= STAT_TOLERANCE[dtype]
+        # slabs of unequal heights (a row split's 3 + 2 rows)
+        rows = worker.UNEVEN_ROWS[rank]
+        r_out, r_grad, r_mean, r_var = result["batch_norm_rows"][str(dtype)]
+        for ours, ref in ((r_out, out[..., rows, :]),
+                          (r_grad, grad[..., rows, :])):
             tol = TOLERANCE.get(dtype) or 2 * 2.0 ** -7 * float(
                 ref.abs().max())
             assert _max_diff(ours, ref) <= tol

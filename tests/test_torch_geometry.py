@@ -33,6 +33,15 @@ from codeps_torch.ops.grid_sample import grid_sample
 B, H, W = 2, 12, 20
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _rng(seed):
     return np.random.default_rng(seed)
 

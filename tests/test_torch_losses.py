@@ -30,6 +30,15 @@ from torch_loss_cases import B, GRAD_REL, REL, H, W, _close, _nchw, _nhwc
 
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _triplet(seed):
     """Images [t, t-1, t+1] (B, H, W, 3), a depth map, two small poses and
     the intrinsics: the target frame is a shifted copy of the neighbors so

@@ -48,6 +48,15 @@ from torch_model_cases import few_threads  # noqa: F401 (autouse)
 
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module", params=[18, 50])
 def encoder(request):
     """(num_layers, flax module, params, stats, image, flax pyramid)."""

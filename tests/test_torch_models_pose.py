@@ -25,6 +25,15 @@ from torch_model_cases import (HEIGHT, WIDTH, _assert_close, _flax_init,
 from torch_model_cases import few_threads  # noqa: F401 (autouse)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def pose_net():
     """The 6-channel ResNet-18 pose encoder and the pose head in Flax,

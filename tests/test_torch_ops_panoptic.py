@@ -15,6 +15,15 @@ THINGS = (9, 10, 11, 12, 13)
 NUM_CLASSES = 14
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Two intra-op threads: the tier-1 run's workers share the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(array):
     return torch.from_numpy(np.array(array))
 

@@ -10,7 +10,10 @@ each) serves the module: each check runs on the ranks' rows inside
   - ``halo_rows`` (zeros, reflect, replicate and -inf edges, halos of 0-3
     rows) and ``gather_rows`` against the padding and concatenation of
     the whole tensor, forward and backward (each rank's loss weighs its
-    own output), float64: outputs equal, gradients within 1e-12 relative;
+    own output), float64, on even slabs and on the uneven slabs of 96
+    rows (2 + 1 blocks) at strides 32 and 16, where a reflection at the
+    image's edge reaches into the neighbour's rows: outputs equal,
+    gradients within 1e-12 relative;
   - each ported module and loss at 64x96 in float64 (ResNet-18 and
     ResNet-50 in eval and train mode, the depth, semantic (GUDA and
     reflect-padded) and instance heads, the bilinear and nearest resizes,
@@ -18,9 +21,12 @@ each) serves the module: each check runs on the ranks' rows inside
     losses): outputs (gathered, or the ranks' shares summed) and
     gradients within 1e-10 relative of one process (measured at most
     1.4e-11, the instance head's train-mode BatchNorm at 2x3 pixels);
+  - the resizes and the warp also on the uneven slabs of 96 rows;
   - the whole adaptation step in float64, 2 steps with the published
     freezing and the fused cut mixup (the teacher's labels gathered before
-    the camera warp), 1 step with a live depth encoder: losses and every
+    the camera warp), 1 step with a live depth encoder, 1 published step
+    at 96 rows (2 + 1 blocks), 1 step with the scene-flow head and a live
+    depth encoder (its motion pair in the eval results): losses and every
     live module's gradient within 1e-10 relative, parameters after the
     steps within 1e-12, replay features, ``sem_conf`` and the fused
     panoptic map equal; rank 0 alone scores the teacher eval;
@@ -44,7 +50,8 @@ each) serves the module: each check runs on the ranks' rows inside
     equal buffer ids and step counts, PQ, mIoU and abs_rel within
     ``scripts/parity_e2e.py:52-54``'s tolerances, losses within 1e-5
     relative (float32 sums of the ranks' shares);
-  - an indivisible height and the flow head raise.
+  - heights that are not whole 32-row blocks, or fewer blocks than
+    ranks, raise; 96 rows do not, and the flow head streams 2 frames.
 """
 
 import os
@@ -183,7 +190,8 @@ def ranks(tmp_path_factory):
 
 def test_halo_and_gather_rows(ranks):
     for result in ranks["ranks"]:
-        assert len(result["halo"]) == len(worker.HALO_CASES) + 1
+        assert len(result["halo"]) == sum(len(cases) + 1 for _, _, cases
+                                          in worker.HALO_SIZES)
         for name, case in result["halo"].items():
             assert case["out"] == 0.0, (name, case)
             assert case.get("inf_equal", True), name
@@ -211,7 +219,8 @@ def test_heads_match_one_process(ranks):
 
 
 def test_resizes_and_warp_match_one_process(ranks):
-    assert _module_distances(ranks, ("resize", "warp")) == 2 * 6
+    # at 64 rows (32 + 32) and at 96 (64 + 32)
+    assert _module_distances(ranks, ("resize", "warp")) == 2 * 2 * 6
 
 
 def test_losses_match_one_process(ranks):
@@ -220,7 +229,7 @@ def test_losses_match_one_process(ranks):
         == 2 * 4
 
 
-@pytest.mark.parametrize("variant", ["published", "live encoder"])
+@pytest.mark.parametrize("variant", [v[0] for v in worker.STEP_VARIANTS])
 def test_step_float64_matches_one_process(ranks, variant):
     lead, follower = (r["step"][variant] for r in ranks["ranks"])
     # every rank holds the global metrics; rank 0 alone scores the eval
@@ -317,9 +326,14 @@ def test_runner_matches_one_process(ranks):
 
 def test_raises(ranks):
     for result in ranks["ranks"]:
-        assert "96 rows does not split over 2 ranks" in result["raises"][
-            "height"]
-        assert "flow head" in result["raises"]["flow"]
+        raises = result["raises"]
+        # not a multiple of 32 rows, and fewer blocks than ranks
+        assert "80 rows does not split over 2 ranks" in raises[80]
+        assert "32 rows does not split over 2 ranks" in raises[32]
+        # 2 + 1 blocks, and the flow head's stream
+        assert raises[worker.UNEVEN_H] == "no error"
+        assert raises["flow"] == "no error"
+    assert ranks["ranks"][0]["raises"]["flow_steps"] == 2
 
 
 def test_rows_without_a_group_change_nothing():
