@@ -394,10 +394,15 @@ NCCL_STEPS = 3
 # (a) one float64 step of the published batch (the fused cut mixup with
 # the camera warp) against one process, within SPATIAL_F64_BOUND; (b) the
 # same in float32, each module's gradient within SPATIAL_F32_FACTOR times
-# the one-process float32 step's distance from the float64 step; then
-# SPATIAL_TIMED_STEPS timed bfloat16 steps; (c) SPATIAL_FRAMES frames of
-# phase 7's stream against one process; (d) the torchrun CLI on a
-# ResNet-18 config at SPATIAL_CLI_SIZE for SPATIAL_CLI_FRAMES frames.
+# the one-process float32 step's distance from the float64 step; (c)
+# SPATIAL_FRAMES frames of phase 7's stream against one process (the
+# runner's hybrid placement); (d) the torchrun CLI on a ResNet-18 config
+# at SPATIAL_CLI_SIZE for SPATIAL_CLI_FRAMES frames; (g) the hybrid
+# placement (side domains by images): one float64 step against one
+# process within SPATIAL_F64_BOUND, SPATIAL_TIMED_STEPS timed bfloat16
+# steps of the hybrid, the pure-row and the one-process step in turns,
+# one instrumented step of each placement, and (c)'s stream under pure
+# rows.
 SPATIAL_RANKS = 2
 SPATIAL_F64_BOUND = 1e-9
 SPATIAL_F32_FACTOR = 1.5
@@ -413,9 +418,10 @@ SPATIAL_TIMED_STEPS = 3
 SPATIAL_FRAMES = 6
 SPATIAL_CLI_SIZE = (64, 192)
 SPATIAL_CLI_FRAMES = 3
-# (e) one float64 step on SPATIAL_UNEVEN_RANKS ranks: the target's 12
-# blocks split 4 / 4 / 4, the source's 16 blocks 6 / 5 / 5; held to
-# SPATIAL_UNEVEN_BOUND of one process
+# (e) one float64 step on SPATIAL_UNEVEN_RANKS ranks under the hybrid
+# placement, which puts every domain by rows (2 side samples do not divide
+# over 3): the target's 12 blocks split 4 / 4 / 4, the source's 16 blocks
+# 6 / 5 / 5; held to SPATIAL_UNEVEN_BOUND of one process
 SPATIAL_UNEVEN_RANKS = 3
 SPATIAL_UNEVEN_BOUND = 1e-12
 # (f) the flow step on SPATIAL_RANKS ranks: float64 against one process,
@@ -2312,18 +2318,35 @@ def spatial_distances(torch, ours, ref):
     return out
 
 
+# what each timed collective needs to communicate
+SPLIT_COLLECTIVES = {"halo_rows": "rows", "gather_rows": "rows",
+                     "gather_images": "images", "all_reduce": "group",
+                     "all_gather": "group", "sum_gradients": "group"}
+
+
 def timed_collectives(torch, names):
-    """Wraps each ``codeps_torch.parallel.spatial`` function in ``names``
-    so that its calls are timed on the host clock after a synchronize;
-    returns (the seconds by name, a function that restores them)."""
+    """Wraps each function in ``names`` (of ``codeps_torch.parallel.spatial``
+    or, for ``all_reduce``, ``all_gather`` and ``sum_gradients``, of
+    ``codeps_torch.parallel``: batch statistics, the top-k, the metrics
+    and the gradients) so that its calls are timed on the host clock after
+    a synchronize, those that communicate (inside the split the function
+    serves, SPLIT_COLLECTIVES); returns (the seconds by name, a function
+    that restores them)."""
+    from codeps_torch import parallel
     from codeps_torch.parallel import spatial
+    homes = {name: spatial if hasattr(spatial, name) else parallel
+             for name in names}
+    when = {"rows": spatial.active, "images": spatial.images_active,
+            "group": parallel.active}
     seconds = {name: [] for name in names}
-    saved = {name: getattr(spatial, name) for name in names}
+    saved = {name: getattr(homes[name], name) for name in names}
 
     def timed(name):
-        fn = saved[name]
+        fn, communicates = saved[name], when[SPLIT_COLLECTIVES[name]]
 
         def call(*args, **kwargs):
+            if not communicates():
+                return fn(*args, **kwargs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -2332,19 +2355,19 @@ def timed_collectives(torch, names):
             return out
         return call
     for name in names:
-        setattr(spatial, name, timed(name))
+        setattr(homes[name], name, timed(name))
 
     def restore():
         for name, fn in saved.items():
-            setattr(spatial, name, fn)
+            setattr(homes[name], name, fn)
     return seconds, restore
 
 
 def spatial_exactness(torch, device, modules):
-    """Phase 14 (a), (b) and the timed steps on this rank; ``modules`` are
-    phase 7's float32 weights on the host. Returns rank 0's distances of
-    the row split from one process (float64; float32 with its control),
-    every rank's metrics, the timed steps and the grouping calls."""
+    """Phase 14 (a) and (b) on this rank; ``modules`` are phase 7's float32
+    weights on the host. Returns rank 0's distances of the row split from
+    one process (float64; float32 with its control), every rank's metrics
+    and the grouping calls. The timed steps are (g)'s."""
     import numpy as np
     from codeps_torch import parallel
     from codeps_torch.parallel import spatial
@@ -2428,76 +2451,135 @@ def spatial_exactness(torch, device, modules):
             out["float32"].append(part)
             del ours, truth
             parallel.barrier()
-        # bfloat16, the package default, on uint8 frames: timed steps of
-        # the row split, then with the collectives timed on their own,
-        # then one process on rank 0
-        cfg, step = build("bfloat16")
-        modules = with_compute_dtype(torch, modules, torch.bfloat16)
-        split_s, one_s = [], []
-        for i in range(1 + SPATIAL_TIMED_STEPS):
-            t0 = time.perf_counter()
-            with spatial.rows():
-                spatial_step_run(torch, step, cfg,
-                                 copy.deepcopy(modules).to(device), batch,
-                                 noise, device)
-            split_s.append(time.perf_counter() - t0)
-        seconds, restore = timed_collectives(torch, ["halo_rows",
-                                                     "gather_rows"])
-        all_reduce = parallel.sum_gradients
-
-        def timed_sum(parameters):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            all_reduce(parameters)
-            torch.cuda.synchronize()
-            seconds.setdefault("sum_gradients", []).append(
-                time.perf_counter() - t0)
-        parallel.sum_gradients = timed_sum
-        try:
-            with spatial.rows():
-                spatial_step_run(torch, step, cfg,
-                                 copy.deepcopy(modules).to(device), batch,
-                                 noise, device)
-        finally:
-            restore()
-            parallel.sum_gradients = all_reduce
-        if lead:
-            with parallel.replicated():
-                for i in range(1 + SPATIAL_TIMED_STEPS):
-                    t0 = time.perf_counter()
-                    spatial_step_run(torch, step, cfg,
-                                     copy.deepcopy(modules).to(device),
-                                     batch, noise, device)
-                    one_s.append(time.perf_counter() - t0)
-        parallel.barrier()
     finally:
         grouped = finish()
     return {"exact": out, "peak_mib": {k: v / 2**20
                                        for k, v in peaks.items()},
-            "split_step_ms": [t * 1e3 for t in split_s],
-            "one_process_step_ms": [t * 1e3 for t in one_s],
-            "collectives_ms": {k: [t * 1e3 for t in v]
-                               for k, v in seconds.items()},
             **grouped}
+
+
+def spatial_hybrid(torch, device, modules):
+    """Phase 14 (g) on this rank: (a)'s published batch under the hybrid
+    placement (``spatial.hybrid``: on SPATIAL_RANKS = 2 ranks the source,
+    target replay and fused cut mixup, 2 samples each, by images, the
+    target and its eval by rows): one float64 step against one process
+    on rank 0; timed bfloat16 steps on uint8 frames under the hybrid
+    placement, under pure rows (``spatial.rows``) and in one process, in
+    turns; then one step of each placement with its halo exchanges,
+    gathers and all-reduces counted and timed (``timed_collectives``).
+    ``modules`` are phase 7's float32 weights on the host."""
+    import numpy as np
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
+                                                 SOURCE_WIDTH)
+    lead = parallel.rank() == 0
+    # (a)'s first batch and noise
+    rng = np.random.default_rng(SEED + 14)
+    batch = spatial_batch(rng, target_size, source_size)
+    noise = automask_noise(torch, rng, target_size, source_size,
+                           adapt_config(target_size, source_size)
+                           .depth.num_recon_scales)
+
+    def build(dtype_name):
+        cfg = adapt_config(target_size, source_size)
+        cfg.tpu.compute_dtype = dtype_name
+        cfg.adapt.mixup.general.geom_augment = True
+        return cfg, make_adapt_step(
+            cfg, list(cfg.semantics.class_weights), has_replay=True,
+            num_mixup=NUM_MIXUP, mixup_groups=(("cut_mixup", NUM_MIXUP),),
+            fused_mixup=True,
+            eval_forward=build_eval_forward(cfg, THINGS, NUM_CLASSES))
+
+    placements = {"hybrid": spatial.hybrid, "rows": spatial.rows,
+                  "one_process": parallel.replicated}
+    out = {"placement": spatial.hybrid_placement(batch,
+                                                  parallel.world_size())}
+    finish = recorded_grouping(torch)
+    try:
+        # float64, exact: no autocast
+        cfg, step = build("float32")
+        mods = with_compute_dtype(torch, copy.deepcopy(modules),
+                                  torch.float32)
+        f64 = float_frames(torch, batch, torch.float64)
+        runs = {}
+        for name in ("hybrid", "one_process"):
+            if name == "hybrid" or lead:
+                torch.cuda.reset_peak_memory_stats()
+                with placements[name]():
+                    runs[name] = spatial_step_run(
+                        torch, step, cfg,
+                        copy.deepcopy(mods).to(device, torch.float64), f64,
+                        noise, device)
+                runs[name]["peak_mib"] = \
+                    torch.cuda.max_memory_allocated() / 2**20
+            parallel.barrier()
+        out["float64"] = {"metrics": runs["hybrid"]["metrics"],
+                          "peak_mib": runs["hybrid"]["peak_mib"]}
+        if lead:
+            out["float64"]["against_one_process"] = spatial_distances(
+                torch, runs["hybrid"], runs["one_process"])
+        del runs, mods
+        torch.cuda.empty_cache()
+        # bfloat16, the package default, on uint8 frames: a warm-up and
+        # SPATIAL_TIMED_STEPS timed steps of each placement in turns (one
+        # process on rank 0 alone)
+        cfg, step = build("bfloat16")
+        mods = with_compute_dtype(torch, copy.deepcopy(modules),
+                                  torch.bfloat16)
+        times = {name: [] for name in placements}
+        for _ in range(1 + SPATIAL_TIMED_STEPS):
+            for name, placement in placements.items():
+                if name != "one_process" or lead:
+                    t0 = time.perf_counter()
+                    with placement():
+                        spatial_step_run(torch, step, cfg,
+                                         copy.deepcopy(mods).to(device),
+                                         batch, noise, device)
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                parallel.barrier()
+        out["step_ms"] = times
+        # one instrumented step of each split placement
+        out["collectives_ms"] = {}
+        for name in ("hybrid", "rows"):
+            seconds, restore = timed_collectives(
+                torch, list(SPLIT_COLLECTIVES))
+            try:
+                with placements[name]():
+                    spatial_step_run(torch, step, cfg,
+                                     copy.deepcopy(mods).to(device), batch,
+                                     noise, device)
+            finally:
+                restore()
+            out["collectives_ms"][name] = {k: [t * 1e3 for t in v]
+                                           for k, v in seconds.items()}
+            parallel.barrier()
+    finally:
+        out.update(finish())
+    return out
 
 
 def spatial_stream(torch, device, modules):
     """Phase 14 (c) on this rank: phase 7's stream for SPATIAL_FRAMES
-    frames with ``tpu.spatial_shard`` (rank 0 streams, the others follow),
-    the gathers timed on their own, then on rank 0 the same stream in one
-    process; in bfloat16 (the package default), then with float64 modules
-    (the runner then streams float64 batches). Returns the numbers of
-    each, by name."""
+    frames with ``tpu.spatial_shard`` (rank 0 streams, the others follow;
+    the runner's steps under the hybrid placement), the gathers timed on
+    their own, then on rank 0 the same stream in one process; in bfloat16
+    (the package default), then with float64 modules (the runner then
+    streams float64 batches); then (g) the bfloat16 split stream with the
+    runner's steps under pure rows (``bfloat16``'s ``rows``). Returns the
+    numbers of each, by name."""
     import numpy as np
     from codeps_torch import parallel
     from codeps_torch.ops import grouping
+    from codeps_torch.parallel import spatial
     target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
                                                  SOURCE_WIDTH)
     lead = parallel.rank() == 0
 
-    def stream(spatial_shard, name, preds):
+    def stream(spatial_shard, name, preds, placement=None):
         # float64 modules compute without autocast
-        compute = "bfloat16" if name == "bfloat16" else "float32"
+        compute = "float32" if name == "float64" else "bfloat16"
         cfg = stream_config(target_size, source_size)
         cfg.tpu.spatial_shard = spatial_shard
         cfg.tpu.compute_dtype = compute
@@ -2507,6 +2589,8 @@ def spatial_stream(torch, device, modules):
             cfg, mods.to(device, torch.float64 if name == "float64"
                          else torch.float32),
             device, SEED, noise=numpy_noise(torch, SEED, device))
+        if placement is not None:
+            runner.placement = placement
         if lead:
             meters, run = drive_stream(torch, runner, card=True,
                                        max_frames=SPATIAL_FRAMES)
@@ -2552,6 +2636,11 @@ def spatial_stream(torch, device, modules):
                 float((a != b).mean()) for a, b in zip(*preds)]
         parallel.barrier()
         out[name] = part
+    # (g): the runner's steps under pure rows, for the frame latency of
+    # both placements
+    out["bfloat16"]["rows"] = stream(True, "bfloat16_rows", [],
+                                     placement=spatial.rows)
+    parallel.barrier()
     return out
 
 
@@ -2743,8 +2832,10 @@ def spatial_flow(torch, device, modules):
 def spatial_three_rank(rank, world, port, out_dir):
     """Phase 14 (e), one of SPATIAL_UNEVEN_RANKS ranks started by
     ``torch.multiprocessing.spawn`` on card ``cuda:0`` over gloo: one
-    float64 step of the published batch with the target's 384 rows split
-    4 / 4 / 4 blocks and the source's 512 rows 6 / 5 / 5, against one
+    float64 step of the published batch under the hybrid placement (2
+    side samples do not divide over 3 ranks: every domain by rows) with
+    the target's 384 rows split 4 / 4 / 4 blocks and the source's 512
+    rows 6 / 5 / 5, against one
     process on rank 0 (``parallel.replicated``), from phase 7's weights
     in ``out_dir/modules.pt``. Writes ``out_dir/uneven<rank>.json``."""
     import os
@@ -2789,10 +2880,11 @@ def spatial_three_rank(rank, world, port, out_dir):
                     rows = spatial.row_slab(height)
                     slabs[name] = [rows.start, rows.stop]
         torch.cuda.reset_peak_memory_stats()
-        with spatial.rows():
+        with spatial.hybrid():
             ours = spatial_step_run(torch, step, cfg, copy.deepcopy(mods).to(
                 device, torch.float64), f64, noise, device)
         numbers = {"rank": rank, "slabs": slabs, "metrics": ours["metrics"],
+                   "placement": spatial.hybrid_placement(f64, world),
                    "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
         if rank == 0:
             with parallel.replicated():
@@ -2830,6 +2922,9 @@ def spatial_smoke_rank(rank, world, port, out_dir):
         numbers = {"rank": rank, "exactness": spatial_exactness(
             torch, device, modules)}
         numbers["exactness_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        numbers["hybrid"] = spatial_hybrid(torch, device, modules)
+        numbers["hybrid_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         numbers["stream"] = spatial_stream(torch, device, modules)
         numbers["stream_s"] = time.perf_counter() - t0
@@ -4305,13 +4400,24 @@ def main() -> int:
             bad = [k for k, v in part["metrics"].items()
                    if not math.isfinite(v)]
             assert not bad, (r, bad)
+        # (g): every rank holds the global losses, and places as rank 0
+        assert numbers["hybrid"]["float64"]["metrics"] == sranks[0][
+            "hybrid"]["float64"]["metrics"], r
+        assert numbers["hybrid"]["placement"] == sranks[0]["hybrid"][
+            "placement"], r
+        assert all(math.isfinite(v) for v in numbers["hybrid"]["float64"][
+            "metrics"].values()), r
         if r:
             assert numbers["exactness"]["launches"] == 0, numbers
+            assert numbers["hybrid"]["launches"] == 0, numbers["hybrid"]
             for part in numbers["stream"].values():
                 assert part["split"]["launches"] == 0
                 assert part["split"]["copies"] == 0
                 assert len(part["split"]["row_times_ms"][
                     "step"]) == SPATIAL_FRAMES
+            rows_part = numbers["stream"]["bfloat16"]["rows"]
+            assert rows_part["launches"] == rows_part["copies"] == 0
+            assert len(rows_part["row_times_ms"]["step"]) == SPATIAL_FRAMES
     f64 = exact["float64"]["against_one_process"]
     f64_worst = max([*f64["loss_rel"].values(), *f64["grad_rel_l2"].values(),
                      *f64["param_err"].values()])
@@ -4322,10 +4428,22 @@ def main() -> int:
         / part["to_float64"]["one_process"]["grad_rel_l2"][k]
         for part in f32) for k in f32[0]["to_float64"]["split"][
             "grad_rel_l2"]}
-    split_ms = max(n["exactness"]["split_step_ms"][-1] for n in sranks)
-    split_steps = [max(n["exactness"]["split_step_ms"][i] for n in sranks)
-                   for i in range(1 + SPATIAL_TIMED_STEPS)]
-    collectives = {k: sum(v) for k, v in ex["collectives_ms"].items()}
+    # (g) the hybrid placement; the timed steps of all three placements
+    hy = lead_numbers["hybrid"]
+    f64_hybrid = hy["float64"]["against_one_process"]
+    hybrid_worst = max([*f64_hybrid["loss_rel"].values(),
+                        *f64_hybrid["grad_rel_l2"].values(),
+                        *f64_hybrid["param_err"].values()])
+    placement_ms = {name: [max(n["hybrid"]["step_ms"][name][i]
+                               for n in sranks
+                               if n["hybrid"]["step_ms"][name])
+                           for i in range(1 + SPATIAL_TIMED_STEPS)]
+                    for name in ("hybrid", "rows", "one_process")}
+    split_steps = placement_ms["rows"]
+    collectives = {name: {k: sum(v) for k, v in part.items()}
+                   for name, part in hy["collectives_ms"].items()}
+    collective_calls = {name: {k: len(v) for k, v in part.items()}
+                        for name, part in hy["collectives_ms"].items()}
     st = lead_numbers["stream"]["bfloat16"]
     split_stream, one_stream = st["split"], st["one_process"]
     st64 = lead_numbers["stream"]["float64"]
@@ -4364,19 +4482,41 @@ def main() -> int:
           f"/ one process: "
           + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
           + f" (bound {SPATIAL_F32_FACTOR})")
-    print(f"spatial step, bfloat16: row split (slowest rank) "
+    print(f"spatial (g) hybrid placement {hy['placement']}: float64, "
+          f"{SPATIAL_RANKS} ranks against one process: losses rel "
+          f"{max(f64_hybrid['loss_rel'].values()):.3g}; gradients by "
+          f"relative L2 " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      f64_hybrid["grad_rel_l2"].items())
+          + f"; parameters {max(f64_hybrid['param_err'].values()):.3g}; "
+          f"replay features {f64_hybrid['features']:.3g}; sem_conf equal "
+          f"{f64_hybrid['sem_conf_equal']}, panoptic map equal "
+          f"{f64_hybrid['panoptic_equal']}; peak "
+          f"{hy['float64']['peak_mib']:.1f} MiB (rank 0)")
+    print(f"spatial step, bfloat16, in turns ({smi}): hybrid (slowest rank) "
+          f"{[round(t, 3) for t in placement_ms['hybrid']]} ms, row split "
           f"{[round(t, 3) for t in split_steps]} ms, one process "
-          f"{[round(t, 3) for t in ex['one_process_step_ms']]} ms (host "
-          f"clock, first is the warm-up); in an instrumented step "
-          f"(synchronized) the halo exchanges {collectives.get('halo_rows', 0):.3f} "
-          f"ms in {len(ex['collectives_ms'].get('halo_rows', []))} calls, "
-          f"the gathers {collectives.get('gather_rows', 0):.3f} ms in "
-          f"{len(ex['collectives_ms'].get('gather_rows', []))}, the gradient "
-          f"all-reduce {collectives.get('sum_gradients', 0):.3f} ms (rank 0)")
-    print(f"spatial (c) stream, {SPATIAL_FRAMES} frames, bfloat16: row split "
-          f"frame {split_stream['frame_ms']:.3f} ms (median after "
-          f"{WARMUP_FRAMES}; all "
-          f"{[round(t, 3) for t in split_stream['all_ms']]}), one process "
+          f"{[round(t, 3) for t in placement_ms['one_process']]} ms (host "
+          f"clock, first is the warm-up)")
+    for name in ("hybrid", "rows"):
+        calls, ms = collective_calls[name], collectives[name]
+        print(f"spatial step, bfloat16, {name}: in an instrumented step "
+              f"(synchronized, rank 0) the halo exchanges "
+              f"{ms['halo_rows']:.3f} ms in {calls['halo_rows']} calls, the "
+              f"row gathers {ms['gather_rows']:.3f} ms in "
+              f"{calls['gather_rows']}, the image gathers "
+              f"{ms['gather_images']:.3f} ms in {calls['gather_images']}, the "
+              f"all-reduces {ms['all_reduce']:.3f} ms in "
+              f"{calls['all_reduce']} and all-gathers {ms['all_gather']:.3f} "
+              f"ms in {calls['all_gather']} (batch statistics, top-k, "
+              f"metrics), the gradient all-reduce "
+              f"{ms['sum_gradients']:.3f} ms")
+    rows_stream = st["rows"]
+    print(f"spatial (c) stream, {SPATIAL_FRAMES} frames, bfloat16 ({smi}): "
+          f"hybrid placement frame {split_stream['frame_ms']:.3f} ms (median "
+          f"after {WARMUP_FRAMES}; all "
+          f"{[round(t, 3) for t in split_stream['all_ms']]}), pure rows "
+          f"{rows_stream['frame_ms']:.3f} ms (all "
+          f"{[round(t, 3) for t in rows_stream['all_ms']]}), one process "
           f"{one_stream['frame_ms']:.3f} ms (all "
           f"{[round(t, 3) for t in one_stream['all_ms']]}); follower step "
           + str([round(t, 3) for t in follower["row_times_ms"]["step"]])
@@ -4388,7 +4528,7 @@ def main() -> int:
           f"{follower['peak_mib']:.1f} MiB, one process "
           f"{one_stream['peak_mib']:.1f} MiB")
     for name, part in (("bfloat16", st), ("float64", st64)):
-        print(f"spatial (c) {name} meters, row split / one process: "
+        print(f"spatial (c) {name} meters, hybrid split / one process: "
               + ", ".join(f"{k} {part['split']['values'][k]:.6g} / "
                           f"{part['one_process']['values'][k]:.6g}"
                           for k in ("p_pq", "sem_miou", "d_abs_rel",
@@ -4476,6 +4616,26 @@ def main() -> int:
     assert f64_worst <= SPATIAL_F64_BOUND, f64
     assert f64["features"] <= SPATIAL_F64_BOUND, f64["features"]
     assert f64["sem_conf_equal"] and f64["panoptic_equal"], f64
+    # (g): 2 samples of each side domain divide over 2 ranks
+    assert hy["placement"] == {"target": "rows", "eval_gt": "rows",
+                               "source": "images", "target_replay": "images",
+                               "mixup": "images"}, hy["placement"]
+    assert hybrid_worst <= SPATIAL_F64_BOUND, f64_hybrid
+    assert f64_hybrid["features"] <= SPATIAL_F64_BOUND, f64_hybrid
+    assert f64_hybrid["sem_conf_equal"] and f64_hybrid["panoptic_equal"], \
+        f64_hybrid
+    # an eval a step on rank 0: float64 hybrid and one process, then the
+    # warm-up and timed steps of the three placements and the two
+    # instrumented steps
+    assert hy["launches"] == 2 + 3 * (1 + SPATIAL_TIMED_STEPS) + 2, hy
+    assert hy["copies"] == hy["max_abs_err"] == 0, hy
+    assert rows_stream["copies"] == rows_stream["max_abs_err"] == 0
+    assert rows_stream["launches"] == 2 * SPATIAL_FRAMES
+    # the side domains by images: fewer halo exchanges, no row gather
+    # but the target's
+    assert collective_calls["hybrid"]["halo_rows"] \
+        < collective_calls["rows"]["halo_rows"], collective_calls
+    assert collective_calls["rows"]["gather_images"] == 0, collective_calls
     for name, ratio in ratios.items():
         assert ratio <= SPATIAL_F32_FACTOR, (name, ratio)
     # the buffer's choices in both; the meters and every panoptic map in
@@ -4515,6 +4675,7 @@ def main() -> int:
         assert max(sizes) - min(sizes) <= 32, slabs
     for n in uneven:
         assert n["metrics"] == uneven[0]["metrics"]
+        assert set(n["placement"].values()) == {"rows"}, n["placement"]
     assert flow_worst <= SPATIAL_F64_BOUND, f64_flow
     assert f64_flow["sem_conf_equal"] and f64_flow["panoptic_equal"]
     assert fl["float64"]["kept_share"] == \
@@ -4553,7 +4714,10 @@ def main() -> int:
                                  for n in sranks),
         "spatial_flow_stream": sum(n["flow"]["stream"]["split"]["launches"]
                                    for n in sranks),
-        "spatial_uneven_step": sum(n["launches"] for n in uneven)}
+        "spatial_uneven_step": sum(n["launches"] for n in uneven),
+        "spatial_hybrid_step": sum(n["hybrid"]["launches"] for n in sranks),
+        "spatial_stream_rows": sum(n["stream"]["bfloat16"]["rows"][
+            "launches"] for n in sranks)}
     spatial_copies = {
         "spatial_step": sum(n["exactness"]["copies"] for n in sranks),
         "spatial_stream": sum(part["split"]["copies"] for n in sranks
@@ -4562,7 +4726,18 @@ def main() -> int:
                                  for n in sranks),
         "spatial_flow_stream": sum(n["flow"]["stream"]["split"]["copies"]
                                    for n in sranks),
-        "spatial_uneven_step": sum(n["copies"] for n in uneven)}
+        "spatial_uneven_step": sum(n["copies"] for n in uneven),
+        "spatial_hybrid_step": sum(n["hybrid"]["copies"] for n in sranks),
+        "spatial_stream_rows": sum(n["stream"]["bfloat16"]["rows"][
+            "copies"] for n in sranks)}
+    print(f"spatial grouping launches, (g) the hybrid steps "
+          f"{hy['launches']} on rank 0, "
+          f"{sranks[1]['hybrid']['launches']} on rank 1, the pure-rows "
+          f"stream {rows_stream['launches']} on rank 0, "
+          f"{sranks[1]['stream']['bfloat16']['rows']['launches']} on rank "
+          f"1; 0 copies; kernel == plain on all "
+          f"{hy['calls'] + rows_stream['calls']} calls; shapes "
+          f"{hy['shapes']}")
     print(f"spatial grouping launches, the flow paths: steps "
           f"{spatial_launches['spatial_flow_step']}, stream "
           f"{spatial_launches['spatial_flow_stream']}; the uneven step "
@@ -4578,10 +4753,20 @@ def main() -> int:
                                  "f32_factor": SPATIAL_F32_FACTOR},
                       "peak_mib": ex["peak_mib"]},
         "step_ms": {"split": split_steps,
-                    "one_process": ex["one_process_step_ms"],
-                    "collectives_ms": collectives,
-                    "collective_calls": {k: len(v) for k, v in
-                                         ex["collectives_ms"].items()}},
+                    "one_process": placement_ms["one_process"],
+                    "collectives_ms": collectives["rows"],
+                    "collective_calls": collective_calls["rows"]},
+        "hybrid": {"placement": hy["placement"], "float64": f64_hybrid,
+                   "bound": SPATIAL_F64_BOUND,
+                   "peak_mib": hy["float64"]["peak_mib"],
+                   "step_ms": placement_ms, "collectives_ms": collectives,
+                   "collective_calls": collective_calls,
+                   "stream_frame_ms": {
+                       "hybrid": split_stream["frame_ms"],
+                       "rows": rows_stream["frame_ms"],
+                       "one_process": one_stream["frame_ms"]},
+                   "stream_all_ms": {"hybrid": split_stream["all_ms"],
+                                     "rows": rows_stream["all_ms"]}},
         "stream": {
             "split": {k: split_stream[k] for k in (
                 "frame_ms", "frame_min_ms", "frame_max_ms", "frames_per_s",
@@ -4623,12 +4808,14 @@ def main() -> int:
                                              "d_abs_rel")}},
         "launches": spatial_launches, "copies": spatial_copies,
         "seconds": {"exactness": [n["exactness_s"] for n in sranks],
+                    "hybrid": [n["hybrid_s"] for n in sranks],
                     "stream": [n["stream_s"] for n in sranks],
                     "flow": [n["flow_s"] for n in sranks],
                     "uneven": [n["seconds"] for n in uneven]}}
     spatial_err = max(ex["max_abs_err"], split_stream["max_abs_err"],
                       st64["split"]["max_abs_err"],
                       fs["split"]["max_abs_err"], flow_grouped["max_abs_err"],
+                      hy["max_abs_err"], rows_stream["max_abs_err"],
                       *(n["max_abs_err"] for n in uneven))
     print(f"phase 14: {time.perf_counter() - phase_start:.3f} s")
 

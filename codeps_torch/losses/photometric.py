@@ -18,7 +18,9 @@ whole and
 cut to this rank's rows, so those rows equal the one-process rows bit for
 bit; the SSIM pools read the neighbouring slabs' rows, the warp samples
 the whole neighbour frames, the noise is this rank's rows of the whole
-draw, and the loss is this rank's share.
+draw, and the loss is this rank's share. Inside ``spatial.images()``
+every input is this rank's images, the noise is its images of the draw
+at the whole batch's shape, and the loss is its share.
 """
 
 from __future__ import annotations
@@ -162,10 +164,10 @@ def reconstruction_loss(intrinsics: torch.Tensor,
             for f in frames_s], dim=1))
         if identity_noise_scale:
             if noise is not None:
-                draw = spatial.rows_noise(noise)(tuple(identity.shape)).to(
+                draw = spatial.noise_of(noise)(tuple(identity.shape)).to(
                     identity.device)
             else:
-                draw = spatial.normal_rows(identity.shape, generator,
+                draw = spatial.normal_of(identity.shape, generator,
                                            identity.device)
             identity = identity + draw * identity_noise_scale
         combined = torch.cat(recon_losses + [identity], dim=1)

@@ -7,12 +7,14 @@ kept: the semantic head returns softmax probabilities and the CE applies
 ``log_softmax`` to them again.
 
 Inside a row split (``parallel/spatial.py``) ``semantic_loss`` takes this
-rank's slab of rows and returns its share of the global value: the top-k
-runs over every rank's pixels.
+rank's slab of rows, inside ``spatial.images()`` this rank's images, and
+returns its share of the global value: the top-k runs over every rank's
+pixels.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence
 
 import torch
@@ -99,10 +101,15 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
     loss = loss * pixel_weights
     if top_k_percent_pixels < 1.0:
         flat = loss.reshape(-1)
-        # the global batch: every rank's rows, or B rows a rank
-        pixels = (loss[:, 0].numel() * spatial.global_rows(loss.shape[1])
-                  if spatial.active()
-                  else flat.shape[0] * parallel.group_size())
+        # the global batch: every rank's rows, every rank's images (a
+        # rank may hold none of a mixup group's), or B rows a rank
+        if spatial.active():
+            pixels = loss[:, 0].numel() * spatial.global_rows(loss.shape[1])
+        elif spatial.images_active():
+            pixels = math.prod(loss.shape[1:]) * spatial.global_images(
+                loss.shape[0])
+        else:
+            pixels = flat.shape[0] * parallel.group_size()
         return spatial.share(top_k_mean(flat,
                                         int(top_k_percent_pixels * pixels)))
     return spatial.mean(widened(loss))

@@ -7,7 +7,8 @@ Inside a row split (``parallel/spatial.py``) the smoothness loss takes
 the whole image and this rank's slab of the disparity, which it gathers
 for the whole image's mean; it returns this rank's share: its rows'
 terms (the vertical ones reach the next slab's first row) over the whole
-image's counts.
+image's counts. Inside ``spatial.images()`` it takes this rank's images
+whole and returns its share of the mean (per sample, each image's own).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def edge_aware_smoothness_loss(target_image: torch.Tensor,
     loss_y = grad_disp_y * torch.exp(-grad_img_y)
     if per_sample:
         return loss_x.mean(dim=(1, 2, 3)) + loss_y.mean(dim=(1, 2, 3))
-    return loss_x.mean() + loss_y.mean()
+    return spatial.mean(loss_x) + spatial.mean(loss_y)
 
 
 def _smoothness_rows(target_image, disparity, per_sample):

@@ -34,9 +34,31 @@ every image tensor of the step:
     global count), so the ranks' losses add up to the one-process loss and
     ``dist.sum_gradients`` gives every rank its gradient.
 
-Outside ``rows()``, in a group of one, or inside ``dist.replicated()``
-(the pose net, which every rank runs on whole frames) every function here
-is the single-process one.
+Inside ``hybrid()`` the adaptation step places its batch as the JAX
+runner does in spatial mode (``shard_adapt_batch_hybrid``,
+``codeps_tpu/parallel/spatial.py:101-128``, which the JAX runner's
+``_place`` applies to every step batch): the target triplet and its eval
+GT by rows, and each side domain (source, target replay, mixup) by images
+where its sample count divides N, by rows where it does not
+(``hybrid_placement``). Inside ``images()`` a domain's module calls run
+whole on this rank's images (``place_images``, ``images_of``): batch
+statistics still reduce over the ranks (train-mode BatchNorm, the global
+top-k), ``mean`` and ``share`` give the rank's share (its images' sum over
+the global count; ``samples(count)`` names that count where a rank holds
+part of a group of samples), ``gather_images`` joins the ranks' images,
+and ``noise_of`` takes this rank's images of a draw at the whole batch's
+shape. An image-split domain needs no halo exchange and no gather, and
+any height. The JAX package decides by the leading axis of a domain's
+first leaf in its sorted key order, which for a fused mixup with
+``class_replace`` is the count of class mixups; the port decides by the
+sample count. Placement changes no number, only which collectives run.
+Outside ``hybrid()`` (``rows()``: every domain by rows, as ``bench.py``'s
+spatial mode and ``shard_adapt_batch_spatial`` place it) nothing of this
+applies.
+
+Outside ``rows()`` and ``hybrid()``, in a group of one, or inside
+``dist.replicated()`` (the pose net, which every rank runs on whole
+frames) every function here is the single-process one.
 """
 
 from __future__ import annotations
@@ -55,8 +77,18 @@ from codeps_torch.parallel import dist
 # a slab is whole blocks of the encoder's output stride
 ROW_ALIGN = 32
 
-# "height": the full-resolution height of ``image()``'s block
-_ROWS = {"on": False, "height": None}
+# "height": the full-resolution height of ``image()``'s block; "hybrid":
+# the step places its side domains as ``hybrid_placement`` says; "images":
+# the block's tensors hold this rank's images of a domain; "samples": the
+# global sample count of the block's leading axis (None: N times the
+# rank's)
+_ROWS = {"on": False, "height": None, "hybrid": False, "images": False,
+         "samples": None}
+
+# the domains of the step's batch that may go by images
+SIDE_DOMAINS = ("source", "target_replay", "mixup")
+# leaves of a fused mixup whose rows are those of one strategy's samples
+_GROUP_LEAVES = {"cut_cells": "cut_mixup", "class_replace": "class_mixup"}
 
 # Height axis of each leaf of the adaptation batch by its key (NHWC, as
 # the batch is built); every other leaf (cameras, cut cells, flags) is
@@ -104,35 +136,70 @@ def index() -> int:
 
 
 @contextlib.contextmanager
-def rows() -> Iterator[None]:
-    """Within the block image tensors are split by rows over the ranks
-    (in a group of one, nothing changes)."""
-    before = _ROWS["on"]
-    _ROWS["on"] = True
+def _mode(**values) -> Iterator[None]:
+    before = {key: _ROWS[key] for key in values}
+    _ROWS.update(values)
     try:
         yield
     finally:
-        _ROWS["on"] = before
+        _ROWS.update(before)
 
 
-@contextlib.contextmanager
-def whole() -> Iterator[None]:
+def rows():
+    """Within the block image tensors are split by rows over the ranks,
+    every domain of the step's batch (in a group of one, nothing
+    changes)."""
+    return _mode(on=True, hybrid=False, images=False)
+
+
+def hybrid():
+    """Within the block the step places its batch as the JAX runner's
+    hybrid placement (``hybrid_placement``): the target by rows, a side
+    domain by images where its samples divide over the ranks (in a group
+    of one, nothing changes)."""
+    return _mode(on=True, hybrid=True, images=False)
+
+
+def hybrid_active() -> bool:
+    """Whether the step places its side domains by ``hybrid_placement``:
+    inside ``hybrid()``, in a process group of several ranks."""
+    return _ROWS["hybrid"] and active()
+
+
+def images():
+    """Within the block a domain's tensors are this rank's images, each
+    whole: no row split; batch statistics reduce over the ranks, and
+    ``mean`` and ``share`` give the rank's share of the global value."""
+    return _mode(on=False, images=True)
+
+
+def images_active() -> bool:
+    """Whether a domain's images are split over the ranks: inside
+    ``images()``, in a process group of several ranks, outside
+    ``dist.replicated()``."""
+    return _ROWS["images"] and dist.active() and dist.world_size() > 1
+
+
+def samples(total: int):
+    """Within the block the leading axis of an image-split tensor is this
+    rank's part of ``total`` samples (a mixup strategy's group, which a
+    rank may hold none of)."""
+    return _mode(samples=total)
+
+
+def whole():
     """Within the block a tensor is whole on every rank (a neighbour
     frame's resize); batch statistics still reduce over the ranks."""
-    before = _ROWS["on"]
-    _ROWS["on"] = False
-    try:
-        yield
-    finally:
-        _ROWS["on"] = before
+    return _mode(on=False)
 
 
 def replicated():
     """The context of work that every rank repeats on whole tensors while
-    rows are split (the pose net): no row split and no reduction over the
-    ranks. Outside a row split, nothing (data parallelism keeps its global
-    batch)."""
-    return dist.replicated() if active() else contextlib.nullcontext()
+    rows or images are split (the pose net): no split and no reduction
+    over the ranks. Outside a split, nothing (data parallelism keeps its
+    global batch)."""
+    return dist.replicated() if active() or images_active() \
+        else contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -237,6 +304,124 @@ def place_rows(tree: dict) -> dict:
                 else spatial_spec(key, value.ndim))
         out[key] = value if axis is None else rows_of(value, axis)
     return out
+
+
+# ----------------------------------------------------- the hybrid placement
+
+def sample_count(domain: dict) -> int | None:
+    """The samples of a domain of the step's batch: its frame triplets', or
+    a mixup's images' (composed ``rgb`` or the raw ``rgb_src``)."""
+    for key in ("frames", "rgb", "rgb_src"):
+        if key in domain:
+            return int(domain[key].shape[0])
+    return None
+
+
+def hybrid_placement(batch: dict, ranks: int) -> dict[str, str]:
+    """"images" or "rows" for each domain (a dict) of the step's batch on
+    ``ranks`` ranks, as ``shard_adapt_batch_hybrid`` places it: the target
+    and its eval GT by rows; source, target replay and mixup by images
+    where their sample count divides ``ranks``, else by rows. The JAX
+    package tests the leading axis of a domain's first leaf in sorted key
+    order instead, which for a fused mixup with ``class_replace`` is the
+    count of class mixups: the two differ only there, and placement changes
+    no number, only which collectives run."""
+    placement = {}
+    for key, value in batch.items():
+        if not isinstance(value, dict):
+            continue
+        count = sample_count(value) if key in SIDE_DOMAINS else None
+        placement[key] = "images" if count and count % ranks == 0 \
+            else "rows"
+    return placement
+
+
+def image_slice(total: int) -> slice:
+    """This rank's images of a domain of ``total`` samples, an equal part
+    each (all of them unless ``images_active()``)."""
+    if not images_active():
+        return slice(0, total)
+    ranks = dist.world_size()
+    if total % ranks:
+        raise ValueError(f"{total} samples do not split over {ranks} ranks")
+    per_rank = total // ranks
+    return slice(dist.rank() * per_rank, (dist.rank() + 1) * per_rank)
+
+
+def images_of(x, axis: int = 0):
+    """This rank's images of ``x`` (a tensor or an array) along ``axis``."""
+    if not images_active():
+        return x
+    index_ = [slice(None)] * x.ndim
+    index_[axis] = image_slice(x.shape[axis])
+    return x[tuple(index_)]
+
+
+def group_slices(groups, total: int) -> list[tuple[str, int, slice]]:
+    """(strategy, its global sample count, its samples among this rank's
+    images) for each (strategy, count) group of a domain of ``total``
+    samples, groups in order (a rank may hold none of a group's)."""
+    mine = image_slice(total)
+    out, start = [], 0
+    for strategy, count in groups:
+        first = min(max(start, mine.start), mine.stop)
+        stop = max(min(start + count, mine.stop), first)
+        out.append((strategy, count, slice(first - mine.start,
+                                           stop - mine.start)))
+        start += count
+    return out
+
+
+def place_images(tree: dict, groups=()) -> dict:
+    """``tree`` (a domain of the step's batch, nested) with every leaf cut
+    to this rank's images along axis 0. A fused mixup's ``cut_cells`` and
+    ``class_replace``, one row a sample of their strategy's group, keep the
+    rows of this rank's samples of that group (``groups``: the mixup's
+    (strategy, count) groups in order)."""
+    total = sample_count(tree)
+    mine = image_slice(total)
+    group_rows = {}
+    start = 0
+    for strategy, count in groups:
+        group_rows[strategy] = slice(
+            min(max(mine.start - start, 0), count),
+            min(max(mine.stop - start, 0), count))
+        start += count
+
+    def cut(node):
+        out = {}
+        for key, value in node.items():
+            if isinstance(value, dict):
+                out[key] = cut(value)
+            elif not hasattr(value, "ndim") or value.ndim == 0:
+                out[key] = value
+            elif key in _GROUP_LEAVES:
+                out[key] = value[group_rows.get(_GROUP_LEAVES[key],
+                                                slice(0, 0))]
+            else:
+                out[key] = value[mine]
+        return out
+    return cut(tree)
+
+
+def global_images(local: int) -> int:
+    """The global sample count of an image-split tensor whose leading axis
+    holds ``local`` samples: ``samples()``'s count, else N times
+    ``local``."""
+    if not images_active():
+        return local
+    if _ROWS["samples"] is not None:
+        return _ROWS["samples"]
+    return local * dist.world_size()
+
+
+def gather_images(x: torch.Tensor) -> torch.Tensor:
+    """The whole batch of every rank's images (axis 0), on every rank.
+    Differentiable: a rank's images get the sum over the ranks of their
+    gradients."""
+    if not images_active():
+        return x
+    return dist.all_gather(x).flatten(0, 1)
 
 
 def global_rows(local: int) -> int:
@@ -406,16 +591,22 @@ def gather_rows(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
 
 def mean(x: torch.Tensor, dim=None, axis: int = -2) -> torch.Tensor:
     """This rank's share of the mean over ``dim`` (all axes by default) of
-    the whole tensor, whose rows lie along ``axis``: the sum of its rows
-    over the global count. The shares of the ranks add up to the mean;
-    outside a row split it is ``x.mean(dim)``."""
-    if not active():
+    the whole tensor, whose rows lie along ``axis`` and images along axis
+    0: the sum of its rows or images over the global count. The shares of
+    the ranks add up to the mean; outside a split it is ``x.mean(dim)``."""
+    by_images = images_active()
+    if not by_images and not active():
         return x.mean() if dim is None else x.mean(dim)
     dims = range(x.ndim) if dim is None else (
         (dim,) if isinstance(dim, int) else dim)
     dims = {d % x.ndim for d in dims}
-    total = math.prod(global_rows(x.shape[d]) if d == axis % x.ndim
-                      else x.shape[d] for d in dims)
+    if by_images and 0 not in dims:
+        # each image whole: its own mean
+        return x.mean(dim)
+    split, whole = (0, global_images) if by_images else (axis % x.ndim,
+                                                         global_rows)
+    total = math.prod(whole(x.shape[d]) if d == split else x.shape[d]
+                      for d in dims)
     summed = x.sum() if dim is None else x.sum(tuple(sorted(dims)))
     return summed / total
 
@@ -423,29 +614,42 @@ def mean(x: torch.Tensor, dim=None, axis: int = -2) -> torch.Tensor:
 def share(value: torch.Tensor) -> torch.Tensor:
     """A rank's share of a value that every rank holds whole (reduced
     over the ranks inside): its 1/N."""
+    if images_active():
+        return value / dist.world_size()
     return value / count() if active() else value
 
 
-def normal_rows(shape, generator: torch.Generator | None,
-                device: torch.device) -> torch.Tensor:
-    """This rank's rows (axis -2) of a standard-normal draw from
-    ``generator`` at the whole tensor's shape: N ranks whose generators
-    are in one state draw what one process draws."""
-    whole_shape = (*shape[:-2], global_rows(shape[-2]), shape[-1])
-    return rows_of(torch.randn(whole_shape, generator=generator,
-                               device=device))
+def _whole_shape(shape) -> tuple:
+    """The whole tensor's shape of this rank's slab or images of it."""
+    if images_active():
+        return (global_images(shape[0]), *shape[1:])
+    return (*shape[:-2], global_rows(shape[-2]), shape[-1])
 
 
-def rows_noise(noise: Callable[[tuple], torch.Tensor]
-               ) -> Callable[[tuple], torch.Tensor]:
-    """A noise callable asked for a slab's shape that takes this rank's
-    rows of ``noise``'s draw at the whole tensor's shape."""
-    if not active():
+def _mine(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows or images of the whole ``x``."""
+    return images_of(x) if images_active() else rows_of(x)
+
+
+def normal_of(shape, generator: torch.Generator | None,
+              device: torch.device) -> torch.Tensor:
+    """This rank's rows (axis -2) or images (axis 0) of a standard-normal
+    draw from ``generator`` at the whole tensor's shape: N ranks whose
+    generators are in one state draw what one process draws."""
+    return _mine(torch.randn(_whole_shape(shape), generator=generator,
+                             device=device))
+
+
+def noise_of(noise: Callable[[tuple], torch.Tensor]
+             ) -> Callable[[tuple], torch.Tensor]:
+    """A noise callable asked for this rank's shape (a slab, or its
+    images) that takes this rank's rows or images of ``noise``'s draw at
+    the whole tensor's shape."""
+    if not active() and not images_active():
         return noise
 
     def draw(shape):
-        whole_shape = (*shape[:-2], global_rows(shape[-2]), shape[-1])
-        return rows_of(noise(whole_shape))
+        return _mine(noise(_whole_shape(shape)))
     return draw
 
 

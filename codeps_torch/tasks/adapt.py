@@ -38,6 +38,7 @@ uint8 frames are normalized here, floats are taken as normalized):
 
 from __future__ import annotations
 
+import contextlib
 import types
 from typing import Any, Dict
 
@@ -288,7 +289,9 @@ def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
     Inside a row split (``parallel/spatial.py``) the teacher labels this
     rank's rows of ``rgb_tgt`` and the labels are gathered: the warp reads
     any row. The (cheap, elementwise) composition runs on whole images,
-    which every rank returns.
+    which every rank returns. Inside ``spatial.images()`` ``mixup`` holds
+    this rank's samples (``spatial.place_images``) and ``mixup_groups``
+    their counts: the teacher labels each whole, nothing is gathered.
     """
     rgb_tgt = maybe_normalize(mixup["rgb_tgt"], mean, std)
     rgb_src = maybe_normalize(mixup["rgb_src"], mean, std)
@@ -378,16 +381,38 @@ def _blend_ema(state: AdaptState, do_ema: bool) -> None:
             e.copy_(alpha * e + (1.0 - alpha) * p)
 
 
-def _check_row_split(batch) -> None:
+def _check_row_split(batch, by_images=()) -> None:
     """Raises ValueError, on every rank before any collective, where a
-    height of the batch does not split into slabs of whole 32-row
-    blocks."""
+    height of a domain placed by rows (not in ``by_images``) does not
+    split into slabs of whole 32-row blocks."""
     for domain in ("target", "source", "target_replay"):
-        if domain in batch:
+        if domain in batch and domain not in by_images:
             spatial.check_height(batch[domain]["frames"].shape[2])
-    for key in ("rgb", "rgb_src", "rgb_tgt"):
-        if key in batch.get("mixup", {}):
-            spatial.check_height(batch["mixup"][key].shape[1])
+    if "mixup" not in by_images:
+        for key in ("rgb", "rgb_src", "rgb_tgt"):
+            if key in batch.get("mixup", {}):
+                spatial.check_height(batch["mixup"][key].shape[1])
+
+
+def _split_noise(noise, count: int, total: int):
+    """Two noise callables over one draw a scale at the merged shape of
+    ``total`` samples: the first (the target's) is asked for the first
+    ``count`` samples and draws, the second (the replay's) takes the rest
+    of each draw in turn. The draws come in one process's order."""
+    rest = []
+
+    def first(shape):
+        draw = noise((total, *shape[1:]))
+        rest.append(draw[count:])
+        return draw[:count]
+
+    def second(shape):
+        draw = rest.pop(0)
+        if tuple(draw.shape) != tuple(shape):
+            raise ValueError(f"the replay's noise is {tuple(draw.shape)}, "
+                             f"asked for {tuple(shape)}")
+        return draw
+    return first, second
 
 
 def make_adapt_step(cfg, class_weights, has_replay: bool = True,
@@ -441,6 +466,33 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     the pose net and the flow head run on the whole frames on every rank:
     the motion maps are whole everywhere, the photometric loss takes its
     rows of them, and the flow regularizers enter as shares.
+
+    Called inside ``spatial.hybrid()`` (the JAX runner's placement in
+    spatial mode, ``shard_adapt_batch_hybrid``) the target and its eval
+    go by rows as above, and each side domain -- source, target replay,
+    mixup -- by images where its sample count divides N, by rows where
+    it does not (``spatial.hybrid_placement``; the JAX package tests the
+    leading axis of a domain's first leaf in sorted key order, for a
+    fused mixup with ``class_replace`` the class mixups' count, where the
+    port tests the sample count: placement changes no number). A domain
+    by images runs its encoder, depth and semantic heads, teacher labels
+    and losses whole on this rank's images, any height, with no halo
+    exchange and no gather; the pose net (and flow head) still runs
+    replicated on the domain's whole frames, so its train-mode BatchNorm
+    sees the one-process batch, and the photometric loss takes this
+    rank's images of the poses; batch statistics reduce over the ranks;
+    every term enters as the rank's share, so the summed gradient stays
+    right. The automask noise is this rank's images of the draw at the
+    whole batch's shape. Without a flow head and with the replay by
+    images the merged target-plus-replay pass splits: the pose net takes
+    the merged whole frames, the encoder and the depth head two calls
+    (the target's rows, then this rank's replay images), and the noise is
+    drawn once a scale at the merged shape. Where the depth encoder is
+    live its train-mode BatchNorm would see other batches in two calls:
+    there target and replay both stay by rows. A mixup strategy group's
+    top-k CE is global over the group's samples on all ranks, and every
+    rank runs its collectives, also one that holds none of the group.
+    Only the domains placed by rows need whole 32-row blocks.
     """
     weights = {k: v for k, v in cfg.losses.weights.items()}
     num_scales = cfg.depth.num_recon_scales
@@ -469,23 +521,36 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                              ignore_labels=sem_ignore_classes,
                              top_k_percent_pixels=top_k, dtype=loss_dtype)
 
+    def merges(student, batch) -> bool:
+        """Whether target and target replay take ONE pass (no flow head and
+        the same frame size, ``adapt.py:514``)."""
+        return (has_replay and student.flow_head is None
+                and batch["target"]["frames"].shape[2:]
+                == batch["target_replay"]["frames"].shape[2:])
+
     def depth_domain(student, images, camera, noise, per_sample=False):
         """Depth losses of one domain: a dict of recon, smth, flow (the
         flow smoothness and sparsity, or None without a flow head),
         transformations, feats (the frame-t encoder pyramid), depth (of
-        frame t) and motion (the object-motion pair, or None). In a row
-        split the triplet's rows go through the encoder (frame t's alone
-        without a flow head) and frame t's through the losses; the whole
-        frames, with their gathered depth, go through the pose net, the
-        flow head and the warp on every rank."""
+        frame t) and motion (the object-motion pair, or None). ``images``
+        and ``camera`` are the domain's whole triplet and cameras. In a
+        row split the triplet's rows go through the encoder (frame t's
+        alone without a flow head) and frame t's through the losses; the
+        whole frames, with their gathered depth, go through the pose net,
+        the flow head and the warp on every rank. Inside
+        ``spatial.images()`` this rank's images go through the encoder,
+        the depth head and the losses, and every image through the pose
+        net and the flow head; the transformations and the motion come
+        back whole."""
+        mine = [spatial.images_of(image) for image in images]
         with spatial.image(images[0].shape[-2]):
             if student.flow_head is not None:
                 feats_t, *feats_nb = encode_frames(
                     student.backbone_po_depth,
-                    [spatial.rows_of(image) for image in images])
+                    [spatial.rows_of(image) for image in mine])
             else:
                 feats_t = student.backbone_po_depth(
-                    spatial.rows_of(images[0]))
+                    spatial.rows_of(mine[0]))
                 feats_nb = None
             fwd = depth_forward(student, images, feats_t, feats_nb)
             # the motion maps are whole on every rank: the flow losses
@@ -493,77 +558,155 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             motion = fwd["object_motion_maps"]
             return {
                 "recon": reconstruction_loss(
-                    camera, images, fwd["depth"], fwd["transformations"],
-                    motion, num_scales=num_scales, per_sample=per_sample,
+                    spatial.images_of(camera), mine, fwd["depth"],
+                    [spatial.images_of(t) for t in fwd["transformations"]],
+                    None if motion is None
+                    else [spatial.images_of(m) for m in motion],
+                    num_scales=num_scales, per_sample=per_sample,
                     noise=noise, dtype=loss_dtype),
                 "smth": edge_aware_smoothness_loss(
-                    images[0], fwd["disparity"], per_sample=per_sample),
+                    mine[0], fwd["disparity"], per_sample=per_sample),
                 "flow": None if motion is None else (
                     spatial.share(flow_smoothness_loss(motion)),
                     spatial.share(flow_sparsity_loss(motion))),
                 "transformations": fwd["transformations"],
                 "feats": feats_t, "depth": fwd["depth"], "motion": motion}
 
-    def semantic_losses(state, batch, source, source_feats, losses):
-        """The source and mixup semantic losses into ``losses``; called
-        inside ``spatial.image`` of the source height."""
+    def split_merged(student, images, camera, count, noise):
+        """The merged target and replay pass with the target's ``count``
+        samples by rows and the replay by images: (target losses, replay
+        losses, the merged transformations, the target's features and
+        depth). The pose net takes the merged whole frames; the encoder
+        and the depth head take the target's rows, then this rank's
+        replay images (a frozen encoder, in eval mode, and heads without
+        normalization: two calls change nothing); the noise is drawn once
+        a scale at the merged shape."""
+        target_noise, replay_noise = _split_noise(noise, count,
+                                                  images[0].shape[0])
+        with spatial.image(images[0].shape[-2]):
+            feats = student.backbone_po_depth(
+                spatial.rows_of(images[0][:count]))
+            # the depth head on the target's rows, the pose net on all
+            fwd = depth_forward(student, images, feats)
+            poses = fwd["transformations"]
+            target_dom = {
+                "recon": reconstruction_loss(
+                    camera[:count], [im[:count] for im in images],
+                    fwd["depth"], [p[:count] for p in poses],
+                    num_scales=num_scales, per_sample=True,
+                    noise=target_noise, dtype=loss_dtype).mean(),
+                "smth": edge_aware_smoothness_loss(
+                    images[0][:count], fwd["disparity"],
+                    per_sample=True).mean()}
+        with spatial.images():
+            replay = [spatial.images_of(im[count:]) for im in images]
+            depth, disparity = student.depth_head(
+                student.backbone_po_depth(replay[0]))
+            replay_dom = {
+                "recon": spatial.mean(reconstruction_loss(
+                    spatial.images_of(camera[count:]), replay, depth,
+                    [spatial.images_of(p[count:]) for p in poses],
+                    num_scales=num_scales, per_sample=True,
+                    noise=replay_noise, dtype=loss_dtype)),
+                "smth": spatial.mean(edge_aware_smoothness_loss(
+                    replay[0], disparity, per_sample=True))}
+        return target_dom, replay_dom, poses, feats, fwd["depth"]
+
+    def mixup_forward(state, mixup):
+        """This rank's mixup samples through the student's encoder:
+        (features, semantic labels, height, groups), groups as
+        ``spatial.group_slices``. With ``fused_mixup`` the samples are
+        composed here. Inside ``spatial.images()`` they are this rank's
+        images, the teacher labelling each whole; by rows, this rank's
+        rows of the whole samples."""
+        groups = spatial.group_slices(mixup_groups, num_mixup)
+        if spatial.images_active():
+            mixup = spatial.place_images(mixup, mixup_groups)
+        if fused_mixup:
+            rgb, semantic = compose_mixup(
+                state.teacher, mixup,
+                tuple((strategy, part.stop - part.start)
+                      for strategy, _, part in groups
+                      if part.stop > part.start),
+                cut_cfg, geom_augment, mean, std)
+        else:
+            rgb, semantic = mixup["rgb"], mixup["semantic"]
+        height = rgb.shape[1]
+        with spatial.image(height):
+            rgb, semantic = (spatial.rows_of(x, axis=1)
+                             for x in (rgb, semantic))
+            feats = state.student.backbone_po_depth(
+                _nchw_images(rgb, mean, std))
+        return feats, semantic, height, groups
+
+    def semantic_losses(state, batch, source, source_feats, losses,
+                        placed, by_images):
+        """The source and mixup semantic losses into ``losses``, each
+        domain under its placement (``placed(domain)``)."""
         student = state.student
+        source_height = batch["source"]["frames"].shape[2]
         num_source = source_feats[0].shape[0]
         mix_feats = None
         if num_mixup > 0:
-            if fused_mixup:
-                mixup = compose_mixup(state.teacher, batch["mixup"],
-                                      mixup_groups, cut_cfg, geom_augment,
-                                      mean, std)
-            else:
-                mixup = (batch["mixup"]["rgb"], batch["mixup"]["semantic"])
-            mix_height = mixup[0].shape[1]
-            with spatial.image(mix_height):
-                mix_rgb, mix_semantic = (spatial.rows_of(x, axis=1)
-                                         for x in mixup)
-                mix_feats = student.backbone_po_depth(
-                    _nchw_images(mix_rgb, mean, std))
-        if mix_feats is not None \
-                and mix_height == source["frames"].shape[2] \
+            with placed("mixup"):
+                mix_feats, mix_semantic, mix_height, groups = mixup_forward(
+                    state, batch["mixup"])
+        if mix_feats is not None and mix_height == source_height \
+                and ("mixup" in by_images) == ("source" in by_images) \
                 and mix_feats[0].shape[1:] == source_feats[0].shape[1:]:
             # One semantic-head pass over source and mixup: the head has
             # no normalization layer, so batching changes nothing.
-            sem_cat = student.semantic_head(
-                [torch.cat([fs, fm]) for fs, fm in zip(source_feats,
-                                                       mix_feats)])
+            with placed("source"), spatial.image(source_height):
+                sem_cat = student.semantic_head(
+                    [torch.cat([fs, fm]) for fs, fm in zip(source_feats,
+                                                           mix_feats)])
             sem_src, sem_mix = sem_cat[:num_source], sem_cat[num_source:]
         else:
-            sem_src = student.semantic_head(source_feats)
+            with placed("source"), spatial.image(source_height):
+                sem_src = student.semantic_head(source_feats)
             sem_mix = None
             if mix_feats is not None:
-                with spatial.image(mix_height):
+                with placed("mixup"), spatial.image(mix_height):
                     sem_mix = student.semantic_head(mix_feats)
-        losses["semantic_source"] = sem_loss(
-            sem_src, source["semantic"], source["semantic_weights"])
+        with placed("source"), spatial.image(source_height):
+            losses["semantic_source"] = sem_loss(
+                sem_src, source["semantic"], source["semantic_weights"])
         if sem_mix is None:
             return
-        start = 0
-        with spatial.image(mix_height):
-            for strategy, count in mixup_groups:
-                sl = slice(start, start + count)
-                start += count
+        # every rank runs each group's collectives, also one that holds
+        # none of its samples
+        with placed("mixup"), spatial.image(mix_height):
+            for strategy, count, part in groups:
                 if weights.get(f"semantic_{strategy}") is None:
                     continue
-                losses[f"semantic_{strategy}"] = sem_loss(
-                    sem_mix[sl], mix_semantic[sl],
-                    torch.ones(mix_semantic[sl].shape,
-                               device=sem_mix.device))
+                with spatial.samples(count):
+                    losses[f"semantic_{strategy}"] = sem_loss(
+                        sem_mix[part], mix_semantic[part],
+                        torch.ones(mix_semantic[part].shape,
+                                   device=sem_mix.device))
 
-    def loss_fn(state: AdaptState, batch, noise, reuse_feats, reuse_depth):
+    def loss_fn(state: AdaptState, batch, noise, reuse_feats, reuse_depth,
+                by_images):
         student = state.student
         use_flow = student.flow_head is not None
         losses: Dict[str, torch.Tensor] = {}
         aux: Dict[str, Any] = {}
+
+        def placed(domain):
+            """The context of a domain's work: this rank's images, or (at
+            the step's own level) its rows."""
+            return spatial.images() if domain in by_images \
+                else contextlib.nullcontext()
+
         source_height = batch["source"]["frames"].shape[2]
         target_height = batch["target"]["frames"].shape[2]
-        with spatial.image(source_height):
-            source = spatial.place_rows(batch["source"])
-        source_images = _triplets(source["frames"], mean, std)
+        with placed("source"):
+            if "source" in by_images:
+                source = spatial.place_images(batch["source"])
+            else:
+                with spatial.image(source_height):
+                    source = spatial.place_rows(batch["source"])
+        source_images = _triplets(batch["source"]["frames"], mean, std)
         num_source = source_images[0].shape[0]
 
         # Frozen modules hold no parameter that requires a gradient, so
@@ -571,8 +714,9 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         source_feats = None
         if student.depth_head is not None:
             # ---- depth over domains (algos/depth.py:507-595)
-            source_dom = depth_domain(student, source_images,
-                                      source["camera"], noise)
+            with placed("source"):
+                source_dom = depth_domain(student, source_images,
+                                          batch["source"]["camera"], noise)
             # The frame-t pyramid of the source triplets serves the
             # panoptic losses too, unless it came out of the flow path's
             # 3B pass through a train-mode encoder: the JAX package's
@@ -585,9 +729,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             nt = target["frames"].shape[0]
             # With a flow head, target and replay take separate passes
             # (adapt.py:514): separate pose-net batches and auto-mask means.
-            merge_tr = (has_replay and not use_flow
-                        and target["frames"].shape[2:]
-                        == batch["target_replay"]["frames"].shape[2:])
+            merge_tr = merges(student, batch)
             if merge_tr:
                 # Target and target replay: ONE batch through the pose
                 # net's train-mode BatchNorm, per-sample loss reduction,
@@ -596,15 +738,23 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                                     batch["target_replay"]["frames"]])
                 camera = torch.cat([target["camera"],
                                     batch["target_replay"]["camera"]])
-                merged = depth_domain(student, _triplets(frames, mean, std),
-                                      camera, noise, per_sample=True)
-                target_dom = {key: merged[key][:nt].mean()
-                              for key in ("recon", "smth")}
-                replay_dom = {key: merged[key][nt:].mean()
-                              for key in ("recon", "smth")}
-                transforms_t = [t[:nt] for t in merged["transformations"]]
-                target_feats = [f[:nt] for f in merged["feats"]]
-                target_depth = merged["depth"][:nt]
+                if "target_replay" in by_images:
+                    target_dom, replay_dom, transforms, target_feats, \
+                        target_depth = split_merged(
+                            student, _triplets(frames, mean, std), camera,
+                            nt, noise)
+                else:
+                    merged = depth_domain(student,
+                                          _triplets(frames, mean, std),
+                                          camera, noise, per_sample=True)
+                    target_dom = {key: merged[key][:nt].mean()
+                                  for key in ("recon", "smth")}
+                    replay_dom = {key: merged[key][nt:].mean()
+                                  for key in ("recon", "smth")}
+                    transforms = merged["transformations"]
+                    target_feats = [f[:nt] for f in merged["feats"]]
+                    target_depth = merged["depth"][:nt]
+                transforms_t = [t[:nt] for t in transforms]
             else:
                 target_dom = depth_domain(
                     student, _triplets(target["frames"], mean, std),
@@ -630,9 +780,10 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             if has_replay:
                 if not merge_tr:
                     replay = batch["target_replay"]
-                    replay_dom = depth_domain(
-                        student, _triplets(replay["frames"], mean, std),
-                        replay["camera"], noise)
+                    with placed("target_replay"):
+                        replay_dom = depth_domain(
+                            student, _triplets(replay["frames"], mean, std),
+                            replay["camera"], noise)
                 domains.append(
                     (replay_dom,
                      float(batch["target_replay"]["frames"].shape[0])))
@@ -660,14 +811,15 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                 aux["eval_depth"] = target_depth.detach()
 
         # ---- source supervised panoptic
-        with spatial.image(source_height):
+        with placed("source"), spatial.image(source_height):
             if source_feats is None:
-                source_feats = student.backbone_po_depth(
-                    spatial.rows_of(source_images[0]))
-            if student.semantic_head is not None:
-                semantic_losses(state, batch, source, source_feats,
-                                losses)
-            if student.instance_head is not None:
+                source_feats = student.backbone_po_depth(spatial.rows_of(
+                    spatial.images_of(source_images[0])))
+        if student.semantic_head is not None:
+            semantic_losses(state, batch, source, source_feats, losses,
+                            placed, by_images)
+        if student.instance_head is not None:
+            with placed("source"), spatial.image(source_height):
                 center_src, offset_src, thing_mask_src = \
                     student.instance_head(source_feats)
                 losses["center_source"] = center_loss(_nhwc(center_src),
@@ -713,21 +865,32 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                        and "backbone_po_depth" in frozen)
         reuse_depth = (reuse_feats and student.depth_head is not None
                        and "depth_head" not in state.ema_modules)
+        for name in student.module_names():
+            getattr(student, name).train(name not in frozen)
+        # the side domains this rank holds by images
+        by_images = set()
+        if spatial.hybrid_active():
+            by_images = {domain for domain, how in spatial.hybrid_placement(
+                batch, parallel.world_size()).items() if how == "images"}
+            if student.backbone_po_depth.training and merges(student,
+                                                             batch):
+                # one pass of the live encoder's train-mode BatchNorm over
+                # target and replay: both by rows
+                by_images.discard("target_replay")
         if spatial.active():
-            _check_row_split(batch)
+            _check_row_split(batch, by_images)
         if noise is None:
             def noise(shape):
                 return torch.randn(shape, generator=state.generator,
                                    device=state.device)
-        for name in student.module_names():
-            getattr(student, name).train(name not in frozen)
         state.optimizer.zero_grad(set_to_none=True)
 
         total, losses, aux = loss_fn(state, batch, noise, reuse_feats,
-                                     reuse_depth)
+                                     reuse_depth, by_images)
         total.backward()
         if spatial.active():
-            # each rank's loss is its rows' share: the sum is the gradient
+            # each rank's loss is its rows' or images' share: the sum is
+            # the gradient
             parallel.sum_gradients(student.parameters())
 
         eval_out = None

@@ -41,14 +41,24 @@ stack with ``make_plabel_step`` and composes each item with
 ``Mixup.do_mixup``, as the JAX runner does.
 
 Spatial sharding (``cfg.tpu.spatial_shard`` in a process group of N > 1
-ranks, ``parallel/spatial.py``) splits each frame's step by image rows
-over the ranks. Rank 0 alone runs the host pipeline above, as the JAX
-runner's single process does; before each step (and each eval of the
-eval-only mode) it broadcasts the assembled batch, and every rank runs
-the step on its rows. The other ranks follow (``run`` calls ``follow``,
-their loop of receive and step) until rank 0's stop message. The host mixup path's
-pseudo-labels run on rank 0 alone, whole, as the JAX runner leaves that
-call unplaced.
+ranks, ``parallel/spatial.py``) splits each frame's step over the ranks
+as the JAX runner's ``_place`` does: a step batch by the hybrid placement
+(``spatial.hybrid``, JAX's ``shard_adapt_batch_hybrid``), the target
+triplet and its eval GT by rows, and source, target replay and mixup by
+images where their sample count divides N, by rows where it does not
+(the JAX runner tests the first leaf of a domain in sorted key order, the
+port the sample count: for a fused mixup with ``class_replace`` the two
+can differ, and no number changes); the eval-only mode's batches by rows
+(``spatial.rows``, JAX's ``shard_adapt_batch_spatial``). No config key
+chooses: ``placement``, the context a step runs in, is ``spatial.hybrid``,
+and a caller that sets it to ``spatial.rows`` (on every rank) streams with
+every domain by rows. Rank 0 alone runs the host pipeline above, as the
+JAX runner's single process does; before each step (and each eval of the
+eval-only mode) it broadcasts the whole assembled batch, and every rank
+takes its rows or images of it in the step. The other ranks follow
+(``run`` calls ``follow``, their loop of receive and step) until rank 0's
+stop message. The host mixup path's pseudo-labels run on rank 0 alone,
+whole, as the JAX runner leaves that call unplaced.
 """
 
 from __future__ import annotations
@@ -163,9 +173,11 @@ class AdaptationRunner:
     def __init__(self, cfg, modules, replay_buffer, seed: int = 0,
                  device=None, verbose: bool = True, noise=None,
                  wandb_logger=None):
-        # spatial sharding: rank 0 leads, the other ranks follow
+        # spatial sharding: rank 0 leads, the other ranks follow; a step
+        # runs under ``placement``, an eval by rows
         self.row_split = bool(cfg.tpu.spatial_shard) \
             and parallel.world_size() > 1
+        self.placement = spatial.hybrid
         # host seconds of each broadcast of a batch, and (on the ranks that
         # follow) of each step
         self.row_times: Dict[str, List[float]] = {"broadcast": [],
@@ -628,7 +640,8 @@ class AdaptationRunner:
 
     def _call_step(self, replay: bool, evaluate: bool, batch):
         """One adaptation step; in a row split, broadcast first (the eval
-        GT stays on rank 0, which alone scores)."""
+        GT stays on rank 0, which alone scores) and run under
+        ``placement``."""
         if not self.row_split:
             return self.steps[(replay, evaluate)](self.state, batch,
                                                   noise=self.noise)
@@ -636,7 +649,7 @@ class AdaptationRunner:
                          "evaluate": evaluate,
                          "batch": {k: v for k, v in batch.items()
                                    if k != "eval_gt"}})
-        with spatial.rows():
+        with self.placement():
             return self.steps[(replay, evaluate)](self.state, batch,
                                                   noise=self.noise)
 
@@ -652,18 +665,20 @@ class AdaptationRunner:
 
     def follow(self) -> Dict[str, Any]:
         """A rank other than 0 of a row split: receive rank 0's batches
-        and run each step (or eval) on this rank's rows, until rank 0's
-        stop message. Returns the (empty) meters."""
+        and run each step (under ``placement``) or eval (by rows) on this
+        rank's part, until rank 0's stop message. Returns the (empty)
+        meters."""
         while True:
             message = self._broadcast(None)
             if message["op"] == "stop":
                 return self.meters
             t0 = time.perf_counter()
-            with spatial.rows():
-                if message["op"] == "step":
+            if message["op"] == "step":
+                with self.placement():
                     self.steps[(message["replay"], message["evaluate"])](
                         self.state, message["batch"], noise=self.noise)
-                else:
+            else:
+                with spatial.rows():
                     self.eval_step(self.state.teacher, message["batch"])
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

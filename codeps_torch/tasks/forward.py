@@ -65,7 +65,10 @@ def depth_forward(modules, images: Sequence[torch.Tensor],
     (``spatial.replicated``; with the flow head, the RGB-D input's depth
     gathered): the pose net's spatial mean and train-mode BatchNorm over
     the pair batch, and the auto-mask's mean, stay exact, and the motion
-    maps come out whole on every rank.
+    maps come out whole on every rank. Inside ``spatial.images()`` the
+    features and the depth are this rank's images of the batch, and the
+    pose net and the flow head run the same way on every image, whole
+    (the RGB-D input's depth gathered over the ranks).
 
     Args:
       images: [img_t, img_tm1, img_tp1], each (B, 3, H, W), whole.
@@ -84,8 +87,9 @@ def depth_forward(modules, images: Sequence[torch.Tensor],
         # the depth head has no normalization layer: the neighbours'
         # depth, detached anyway, needs no graph
         with torch.no_grad():
-            depths = [spatial.gather_rows(d) for d in [depth_t.detach()] + [
-                modules.depth_head(f)[0] for f in feats_neighbors]]
+            depths = [spatial.gather_images(spatial.gather_rows(d))
+                      for d in [depth_t.detach()] + [
+                          modules.depth_head(f)[0] for f in feats_neighbors]]
         images = [torch.cat([img, d], dim=1)
                   for img, d in zip(images, depths)]
     pair_bwd = torch.cat([images[1], images[0]], dim=1)

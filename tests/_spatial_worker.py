@@ -77,15 +77,20 @@ def step_config(compute_dtype="float32"):
     return cfg
 
 
-def step_batch(seed, dtype=np.float64, fused=False, height=H):
-    """An adaptation batch at ``height`` x W; float frames are taken as
-    normalized. ``fused`` gives the raw materials of two cut mixups with
-    the camera warp in place of composed samples."""
+def step_batch(seed, dtype=np.float64, fused=False, height=H,
+               num_source=NUM_SOURCE, num_replay=NUM_REPLAY, groups=None,
+               source_height=None):
+    """An adaptation batch at ``height`` x W (the source and the mixup at
+    ``source_height``, by default ``height``); float frames are taken as
+    normalized. ``fused`` gives the raw materials of NUM_MIXUP mixups with
+    the camera warp in place of composed samples: cut mixups, or the
+    (strategy, count) ``groups`` of cut and class mixups in that order."""
     from codeps_torch.tasks.mixup_prep import c2c_prewarp
     rng = np.random.default_rng(seed)
+    target_height, height = height, source_height or height
 
-    def cams(n, f):
-        return np.tile(np.asarray([[f, f, W / 2, height / 2]], np.float32),
+    def cams(n, f, rows=height):
+        return np.tile(np.asarray([[f, f, W / 2, rows / 2]], np.float32),
                        (n, 1))
 
     def images(*shape):
@@ -94,39 +99,45 @@ def step_batch(seed, dtype=np.float64, fused=False, height=H):
         return rng.normal(0, 1, (*shape, 3)).astype(dtype)
 
     batch = {
-        "target": {"frames": images(1, 3, height, W),
-                   "camera": cams(1, 30.0)},
+        "target": {"frames": images(1, 3, target_height, W),
+                   "camera": cams(1, 30.0, target_height)},
         "source": {
-            "frames": images(NUM_SOURCE, 3, height, W),
-            "camera": cams(NUM_SOURCE, 28.0),
-            "semantic": rng.integers(0, NC, (NUM_SOURCE, height, W)).astype(
+            "frames": images(num_source, 3, height, W),
+            "camera": cams(num_source, 28.0),
+            "semantic": rng.integers(0, NC, (num_source, height, W)).astype(
                 np.int32),
             "semantic_weights": rng.uniform(
-                0.5, 2.0, (NUM_SOURCE, height, W)).astype(np.float32),
-            "center": rng.uniform(0, 1, (NUM_SOURCE, height, W, 1)).astype(
+                0.5, 2.0, (num_source, height, W)).astype(np.float32),
+            "center": rng.uniform(0, 1, (num_source, height, W, 1)).astype(
                 np.float32),
-            "offset": rng.normal(0, 4, (NUM_SOURCE, height, W, 2)).astype(
+            "offset": rng.normal(0, 4, (num_source, height, W, 2)).astype(
                 np.float32)},
-        "target_replay": {"frames": images(NUM_REPLAY, 3, height, W),
-                          "camera": cams(NUM_REPLAY, 30.0)},
+        "target_replay": {"frames": images(num_replay, 3, target_height, W),
+                          "camera": cams(num_replay, 30.0, target_height)},
         "eval_gt": {
-            "semantic": rng.integers(0, NC, (1, height, W)).astype(np.int32),
-            "depth_gt": np.where(rng.random((1, height, W)) < 0.2, 0.0,
-                                 rng.uniform(1, 60, (1, height, W))).astype(
-                np.float32)},
+            "semantic": rng.integers(0, NC, (1, target_height, W)).astype(
+                np.int32),
+            "depth_gt": np.where(
+                rng.random((1, target_height, W)) < 0.2, 0.0,
+                rng.uniform(1, 60, (1, target_height, W))).astype(
+                    np.float32)},
     }
     if fused:
+        counts = dict(groups or (("cut_mixup", NUM_MIXUP),))
         batch["mixup"] = {
             "rgb_src": images(NUM_MIXUP, height, W),
             "semantic_src": rng.integers(0, NC, (NUM_MIXUP, height, W))
             .astype(np.int32),
-            "rgb_tgt": images(NUM_MIXUP, height, W),
-            "prewarp": c2c_prewarp(cams(NUM_MIXUP, 30.0),
-                                   cams(NUM_MIXUP, 24.0), (height, W),
-                                   (height, W)),
+            "rgb_tgt": images(NUM_MIXUP, target_height, W),
+            "prewarp": c2c_prewarp(cams(NUM_MIXUP, 30.0, target_height),
+                                   cams(NUM_MIXUP, 24.0),
+                                   (target_height, W), (height, W)),
             "cut_cells": np.stack([rng.choice(8, 2, replace=False)
-                                   for _ in range(NUM_MIXUP)]).astype(
-                                       np.int32)}
+                                   for _ in range(counts.get(
+                                       "cut_mixup", 0))]).astype(np.int32)}
+        if counts.get("class_mixup"):
+            batch["mixup"]["class_replace"] = rng.random(
+                (counts["class_mixup"], 256)) < 0.5
     else:
         batch["mixup"] = {
             "rgb": images(NUM_MIXUP, height, W),
@@ -135,8 +146,9 @@ def step_batch(seed, dtype=np.float64, fused=False, height=H):
     return batch
 
 
-def build_step(cfg, fused=False):
-    """(seeded modules, the step) of ``step_config``."""
+def build_step(cfg, fused=False, groups=None):
+    """(seeded modules, the step) of ``step_config``, with the mixup's
+    (strategy, count) ``groups`` (NUM_MIXUP cut mixups by default)."""
     from codeps_torch.models import build_modules, init_params
     from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
     modules = init_params(build_modules(cfg, NC, device="cpu"), seed=4,
@@ -145,7 +157,8 @@ def build_step(cfg, fused=False):
         # centers over the threshold, so that the fusion has instances
         modules.instance_head.center_head.net.conv.bias.fill_(0.12)
     step = make_adapt_step(cfg, [1.0] * NC, has_replay=True,
-                           num_mixup=NUM_MIXUP, fused_mixup=fused,
+                           num_mixup=NUM_MIXUP, mixup_groups=groups,
+                           fused_mixup=fused,
                            eval_forward=build_eval_forward(cfg, THINGS, NC))
     return modules, step
 
@@ -517,6 +530,66 @@ def check_step(out):
     out["step"] = result
 
 
+# the hybrid step's variants (``spatial.hybrid()``): (name, fused mixup,
+# frozen modules, scene flow, batch arguments, mixup groups). On 2 ranks:
+# the published freezing with 2 replay samples puts every side domain by
+# images and splits the merged target and replay pass; the flow head with
+# a live depth encoder and 1 replay sample keeps the replay by rows; cut
+# and class mixup, one each, leave each rank without a sample of one
+# group; a source and mixup of 32 rows (one block, no row split) go by
+# images
+HYBRID_VARIANTS = (
+    ("published", True, FROZEN, False, {"num_replay": 2}, None),
+    ("flow", False, ("instance_head",), True, {}, None),
+    ("mixup groups", True, FROZEN, False, {},
+     (("cut_mixup", 1), ("class_mixup", 1))),
+    ("any height", False, FROZEN, False, {"source_height": 32}, None))
+
+
+def check_hybrid_step(out):
+    """The float64 step under ``spatial.hybrid()`` on 2 ranks against one
+    process (rank 0, ``replicated()``) for each of HYBRID_VARIANTS, one
+    step each, with each domain's placement; then the raise of a source
+    of 32 rows whose 3 samples do not split over the ranks, which falls
+    back to rows."""
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    result = {}
+    for name, fused, frozen, flow, sizes, groups in HYBRID_VARIANTS:
+        cfg = step_config()
+        cfg.model.make_sflow = flow
+        cfg.losses.weights.semantic_class_mixup = 1.0
+        modules, step = build_step(cfg, fused=fused, groups=groups)
+        modules = modules.double()
+        start = copy.deepcopy(modules)
+        batches = [step_batch(70, fused=fused, groups=groups, **sizes)]
+        with spatial.hybrid():
+            ours = run_steps(modules, step, batches, frozen)
+        result[name] = {
+            "metrics": ours[0][0]["metrics"],
+            "placement": spatial.hybrid_placement(batches[0],
+                                                  parallel.world_size()),
+            "eval_on_followers": ours[0][0]["results"] is None}
+        if parallel.rank() == 0:
+            with parallel.replicated():
+                ref = run_steps(start, step, batches, frozen)
+            result[name].update(_step_distances(ours, ref))
+        parallel.barrier()
+    cfg = step_config()
+    modules, step = build_step(cfg)
+    from codeps_torch.tasks.state import make_adapt_state
+    state = make_adapt_state(modules, LR, ema_modules=EMA,
+                             frozen_modules=FROZEN, device="cpu")
+    try:
+        with spatial.hybrid():
+            step(state, step_batch(71, np.uint8, num_source=3,
+                                   source_height=32))
+        result["raise"] = "no error"
+    except ValueError as error:
+        result["raise"] = str(error)
+    out["hybrid"] = result
+
+
 def check_jax_step(out, inputs_path):
     """The float32 step from the JAX package's weights and batch with its
     global noise, on this rank's rows: rank 0's metrics, gradients,
@@ -550,10 +623,19 @@ def check_jax_step(out, inputs_path):
         return draw
 
     start = copy.deepcopy(modules)
+    hybrid_start = copy.deepcopy(modules)
     with spatial.rows():
         steps, _ = run_steps(modules, step, [inputs["batch"]], FROZEN,
                              noise=noise)
     out["jax"] = steps[0] if parallel.rank() == 0 else {
+        "metrics": steps[0]["metrics"]}
+    # the hybrid placement: source and mixup by images, the replay's one
+    # sample by rows
+    draws = list(inputs["noise"])
+    with spatial.hybrid():
+        steps, _ = run_steps(hybrid_start, step, [inputs["batch"]], FROZEN,
+                             noise=noise)
+    out["jax_hybrid"] = steps[0] if parallel.rank() == 0 else {
         "metrics": steps[0]["metrics"]}
     if parallel.rank() == 0:
         # the control: the one-process step on the same inputs
@@ -681,8 +763,8 @@ def main(argv):
     from codeps_torch import parallel
     with parallel.process_group("cpu"):
         out = {"root": str(out_dir)}
-        for check in (check_halo, check_modules, check_step, check_runner,
-                      check_raises):
+        for check in (check_halo, check_modules, check_step,
+                      check_hybrid_step, check_runner, check_raises):
             check(out)
         check_jax_step(out, out_dir / "jax_inputs.pt")
         torch.save(out, out_dir / f"spatial_{parallel.rank()}.pt")

@@ -3,9 +3,11 @@
 ``codeps_tpu/parallel/spatial.py``), on the CPU over gloo.
 
 One spawn of 2 ranks (``tests/_spatial_worker.py``, one intra-op thread
-each) serves the module: each check runs on the ranks' rows inside
-``spatial.rows()`` and is held against the same port code in one process
-(``parallel.replicated()``), or against the JAX package's step:
+each) serves the module and ``tests/test_torch_spatial_hybrid.py``
+(``tests/torch_spatial_cases.py``): each check here runs on the ranks'
+rows inside ``spatial.rows()`` and is held against the same port code in
+one process (``parallel.replicated()``), or against the JAX package's
+step:
 
   - ``halo_rows`` (zeros, reflect, replicate and -inf edges, halos of 0-3
     rows) and ``gather_rows`` against the padding and concatenation of
@@ -46,7 +48,9 @@ each) serves the module: each check runs on the ranks' rows inside
     ``tests/test_torch_adapt.py`` meets at 32x64 (the semantic head's:
     5.7e-7);
   - ``AdaptationRunner`` with ``tpu.spatial_shard`` streaming the
-    synthetic KITTI-360 tree for 3 frames on 2 ranks against one process:
+    synthetic KITTI-360 tree for 3 frames on 2 ranks (its steps under the
+    hybrid placement: source and mixup by images, the replay by rows)
+    against one process:
     equal buffer ids and step counts, PQ, mIoU and abs_rel within
     ``scripts/parity_e2e.py:52-54``'s tolerances, losses within 1e-5
     relative (float32 sums of the ranks' shares);
@@ -54,46 +58,19 @@ each) serves the module: each check runs on the ranks' rows inside
     ranks, raise; 96 rows do not, and the flow head streams 2 frames.
 """
 
-import os
-import shutil
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
-import jax
-import jax.numpy as jnp
-
-from codeps_tpu.config import gen_config as jax_gen_config
-from codeps_tpu.models import build_modules as jax_build_modules
-from codeps_tpu.models import init_params as jax_init_params
-from codeps_tpu.tasks import build_optimizer as jax_build_optimizer
-from codeps_tpu.tasks import make_adapt_state as jax_make_adapt_state
-from codeps_tpu.tasks.adapt import build_eval_forward as jax_eval_forward
-from codeps_tpu.tasks.adapt import make_adapt_step as jax_make_adapt_step
-
-import _ddp_worker
 import _spatial_worker as worker
-from codeps_torch.data.synthetic import (make_cityscapes_tree,
-                                         make_kitti360_tree)
-from codeps_torch.io import from_jax
+import torch_spatial_cases as cases
 from codeps_torch.parallel import spatial
 
-MODULE_TOL = 1e-10
+MODULE_TOL = cases.MODULE_TOL
 HALO_GRAD_TOL = 1e-12
-PARAM_TOL = 1e-12
-JAX_REL_TOL = 1e-4
-JAX_GRAD_MAX = 2e-4
-JAX_GRAD_L2 = 1e-4
-# the row split's gradient distance from JAX, as a multiple of the
-# one-process port's own (see the docstring)
-CONTROL = 1.5
+PARAM_TOL = cases.PARAM_TOL
 RUNNER_LOSS_REL = 1e-5
 PQ_TOL = MIOU_TOL = ABS_REL_TOL = 0.005
-NUM_SCALES = 5
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -105,87 +82,12 @@ def few_threads():
     torch.set_num_threads(threads)
 
 
-def _jax_noise(step_key):
-    """The automask normals one JAX step draws, in the order the port asks
-    for them (source scales, then the target and replay's), NCHW."""
-    def scales(key, batch):
-        out = []
-        for s in range(NUM_SCALES):
-            key, sub = jax.random.split(key)
-            draw = jax.random.normal(
-                sub, (batch, worker.H >> s, worker.W >> s, 2), jnp.float32)
-            out.append(np.asarray(draw).transpose(0, 3, 1, 2))
-        return out
-    _, loss_key = jax.random.split(step_key)
-    key, sub = jax.random.split(loss_key)
-    source = scales(sub, worker.NUM_SOURCE)
-    _, sub = jax.random.split(key)
-    return source + scales(sub, 1 + worker.NUM_REPLAY)
-
-
-def _jax_step(out_dir):
-    """The JAX step on a uint8 batch of ``worker.step_batch``: writes the
-    port's inputs (state dicts, batch, noise) for the ranks and returns
-    the JAX outputs and the weights."""
-    jcfg = jax_gen_config(adapt=True, freeze=False)
-    jcfg.model.po_depth_net.params.nof_layers = 18
-    jcfg.model.pose_sflow_net.params.nof_layers = 18
-    jcfg.semantics.class_weights = [1.0] * worker.NC
-    jcfg.adapt.ema.semantic = True
-    jcfg.adapt.ema.alpha = 0.99
-    jcfg.tpu.compute_dtype = "float32"
-    jmodules = jax_build_modules(jcfg, num_classes=worker.NC)
-    params, stats = jax_init_params(jax.random.PRNGKey(0), jmodules,
-                                    (worker.H, worker.W))
-    params, stats = jax.tree.map(np.array, (params, stats))
-    tx = jax_build_optimizer(jcfg, worker.LR, frozen_modules=worker.FROZEN)
-    step = jax_make_adapt_step(
-        jmodules, jcfg, tx, class_weights=[1.0] * worker.NC,
-        ema_modules=worker.EMA, frozen_modules=worker.FROZEN,
-        has_replay=True, num_mixup=worker.NUM_MIXUP, donate=False,
-        eval_forward=jax_eval_forward(jmodules, jcfg, worker.THINGS))
-    state = jax_make_adapt_state(
-        jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
-        tx, jax.random.PRNGKey(2), ema_modules=worker.EMA,
-        frozen_modules=worker.FROZEN, ema_alpha=0.99)
-    batch = worker.step_batch(50, np.uint8)
-    noise = _jax_noise(state.rng)
-    state, *results = step(state, jax.tree.map(jnp.asarray, batch))
-    cfg = worker.step_config()
-    partial = out_dir / "jax_inputs.tmp"
-    torch.save({"state_dicts": from_jax.state_dicts_from_jax(params, stats,
-                                                             cfg),
-                "batch": batch, "noise": noise}, partial)
-    os.replace(partial, out_dir / "jax_inputs.pt")
-    return (jax.tree.map(np.array, state), jax.tree.map(np.array, results),
-            stats, cfg)
-
-
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every check's results on each of the 2 ranks, and the JAX step's
-    outputs."""
-    out = tmp_path_factory.mktemp("torch_spatial")
-    make_cityscapes_tree(out / "cs", num_frames=6, width=worker.W,
-                         height=worker.H)
-    make_kitti360_tree(out / "k360", num_frames=6, width=worker.W,
-                       height=worker.H)
-    port = str(_ddp_worker.free_port())
-    procs = [subprocess.Popen(
-        [sys.executable, str(Path(worker.__file__).resolve()), str(out)],
-        env=_ddp_worker.env(RANK=str(rank), WORLD_SIZE="2",
-                            LOCAL_RANK=str(rank), MASTER_PORT=port),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for rank in range(2)]
-    try:
-        # the ranks run their other checks while JAX compiles its step
-        jax_out = _jax_step(out)
-    finally:
-        _ddp_worker.finish(procs)
-    results = [torch.load(out / f"spatial_{rank}.pt", weights_only=False)
-               for rank in range(2)]
-    shutil.rmtree(out, ignore_errors=True)
-    return {"ranks": results, "jax": jax_out}
+    outputs (one spawn, shared with ``tests/test_torch_spatial_hybrid.py``:
+    ``tests/torch_spatial_cases.py``)."""
+    return cases.spawned(tmp_path_factory)
 
 
 def test_halo_and_gather_rows(ranks):
@@ -248,59 +150,10 @@ def test_step_float64_matches_one_process(ranks, variant):
     assert lead["sem_conf_equal"] and lead["panoptic_equal"]
 
 
-def _rel_close(ours, ref, rel, what):
-    ours, ref = float(ours), float(ref)
-    assert abs(ours - ref) <= rel * abs(ref), (what, ours, ref)
-
-
 def test_step_float32_matches_jax(ranks):
-    jstate, (jmetrics, jfeat, jres, jstats), jax_stats, cfg = ranks["jax"]
     ours = ranks["ranks"][0]["jax"]
     assert ranks["ranks"][1]["jax"]["metrics"] == ours["metrics"]
-    for key, ref in jmetrics.items():
-        _rel_close(ours["metrics"][key], ref, JAX_REL_TOL, key)
-    feat = ours["features"].numpy()
-    assert np.abs(feat - jfeat).max() <= JAX_REL_TOL * np.abs(jfeat).max()
-    pres = {k: v.numpy() for k, v in ours["results"].items()
-            if v is not None}
-    for key in ("depth", "semantic_soft", "center", "offset"):
-        err = np.abs(pres[key] - jres[key]).max()
-        assert err <= JAX_REL_TOL * np.abs(jres[key]).max(), (key, err)
-    for key in ("semantic", "panoptic", "instance"):
-        np.testing.assert_array_equal(pres[key], jres[key], err_msg=key)
-    np.testing.assert_array_equal(ours["stats"]["sem_conf"].numpy(),
-                                  jstats["sem_conf"])
-    for key, ref in jstats.items():
-        if key != "sem_conf":
-            _rel_close(ours["stats"][key], ref, JAX_REL_TOL, key)
-    # Adam's first moment after one step from zero is (1 - b1) * g
-    mu = jstate.opt_state.inner_states["trained"].inner_state[0].mu
-    convert = {"backbone_pose_sflow": lambda p: from_jax.resnet_encoder(
-        p, jax_stats["backbone_pose_sflow"], 18),
-        "depth_head": from_jax.depth_head, "pose_head": from_jax.pose_head,
-        "semantic_head": lambda p: from_jax.semantic_head(p, True)}
-    for name in worker.LIVE:
-        ref = {key: value.numpy() / (1.0 - 0.9)
-               for key, value in convert[name](mu[name]).items()}
-        split = _grad_distances(ours["grads"][name], ref)
-        control = _grad_distances(ours["one_process"]["grads"][name], ref)
-        assert split[0] <= max(JAX_GRAD_MAX, CONTROL * control[0]), \
-            (name, split, control)
-        assert split[1] <= max(JAX_GRAD_L2, CONTROL * control[1]), \
-            (name, split, control)
-
-
-def _grad_distances(grads, ref):
-    """(largest of each tensor's max |diff| over its max |ref|, relative
-    L2 over the module) of a module's gradients from ``ref``."""
-    worst = num = den = 0.0
-    for key, grad in grads.items():
-        got = grad.double().numpy()
-        worst = max(worst, np.abs(got - ref[key]).max()
-                    / np.abs(ref[key]).max())
-        num += float(((got - ref[key]) ** 2).sum())
-        den += float((ref[key] ** 2).sum())
-    return worst, np.sqrt(num / den)
+    cases.check_against_jax(ours, ours["one_process"], ranks["jax"])
 
 
 def test_runner_matches_one_process(ranks):
