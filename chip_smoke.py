@@ -429,6 +429,22 @@ SPATIAL_UNEVEN_BOUND = 1e-12
 # SPATIAL_FLOW_FRAMES frames of the flow stream
 SPATIAL_FLOW_TIMED_STEPS = 2
 SPATIAL_FLOW_FRAMES = 4
+# (h) fewer 32-row blocks than ranks, the last ranks' slabs empty, gloo
+# ranks sharing the card as in (e): (h1) one float64 step of the published
+# batch at the published widths on SPATIAL_EMPTY_RANKS ranks, the target
+# at SPATIAL_EMPTY_SIZES[0] (3 blocks: 1 / 1 / 1 / 0) and the source and
+# mixup at SPATIAL_EMPTY_SIZES[1] (2 blocks: 1 / 1 / 0 / 0), under the
+# hybrid placement (all rows), held to SPATIAL_UNEVEN_BOUND of one
+# process; (h2) the published 384x1408 frame on SPATIAL_WIDE_RANKS ranks,
+# two 8-card nodes' count (target 12 blocks: 4 ranks empty; source 16):
+# the float64 teacher eval's maps equal to one process's, then
+# SPATIAL_WIDE_TIMED_STEPS timed bfloat16 steps under the hybrid
+# placement after an instrumented warm-up (some 50 s a step: 16 gloo
+# ranks on 8 cores)
+SPATIAL_EMPTY_RANKS = 4
+SPATIAL_EMPTY_SIZES = ((96, WIDTH), (64, SOURCE_WIDTH))
+SPATIAL_WIDE_RANKS = 16
+SPATIAL_WIDE_TIMED_STEPS = 1
 
 
 def phase(name):
@@ -2872,13 +2888,9 @@ def spatial_three_rank(rank, world, port, out_dir):
     finish = recorded_grouping(torch)
     with parallel.process_group(device):
         assert torch.distributed.get_backend() == "gloo"
-        with spatial.rows():
-            slabs = {}
-            for name, height in (("target", HEIGHT),
-                                 ("source", SOURCE_HEIGHT)):
-                with spatial.image(height):
-                    rows = spatial.row_slab(height)
-                    slabs[name] = [rows.start, rows.stop]
+        slabs = row_slabs(spatial, {
+            "target": (HEIGHT, WIDTH),
+            "source": (SOURCE_HEIGHT, SOURCE_WIDTH)})
         torch.cuda.reset_peak_memory_stats()
         with spatial.hybrid():
             ours = spatial_step_run(torch, step, cfg, copy.deepcopy(mods).to(
@@ -2896,6 +2908,197 @@ def spatial_three_rank(rank, world, port, out_dir):
     numbers.update(finish())
     numbers["seconds"] = time.perf_counter() - t0
     (out_dir / f"uneven{rank}.json").write_text(json.dumps(
+        numbers, default=float))
+
+
+def spatial_empty_rank(rank, world, port, out_dir):
+    """Phase 14 (h1), one of SPATIAL_EMPTY_RANKS ranks started by
+    ``torch.multiprocessing.spawn`` on card ``cuda:0`` over gloo: one
+    float64 step of the published batch at the published widths and
+    SPATIAL_EMPTY_SIZES' heights, fewer 32-row blocks than ranks (the
+    target's 3 blocks 1 / 1 / 1 / 0, the source's and mixup's 2 blocks
+    1 / 1 / 0 / 0), under the hybrid placement (2 side samples do not
+    divide over 4 ranks: every domain by rows), against one process on
+    rank 0 (``parallel.replicated``), from phase 7's weights in
+    ``out_dir/modules.pt``. Writes ``out_dir/empty<rank>.json``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import numpy as np
+    import torch
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = Path(out_dir)
+    device = torch.device("cuda", 0)
+    modules = torch.load(out_dir / "modules.pt", weights_only=False)
+    target_size, source_size = SPATIAL_EMPTY_SIZES
+    rng = np.random.default_rng(SEED + 14)
+    batch = spatial_batch(rng, target_size, source_size)
+    cfg = adapt_config(target_size, source_size)
+    cfg.tpu.compute_dtype = "float32"
+    cfg.adapt.mixup.general.geom_augment = True
+    noise = automask_noise(torch, rng, target_size, source_size,
+                           cfg.depth.num_recon_scales)
+    step = make_adapt_step(
+        cfg, list(cfg.semantics.class_weights), has_replay=True,
+        num_mixup=NUM_MIXUP, mixup_groups=(("cut_mixup", NUM_MIXUP),),
+        fused_mixup=True,
+        eval_forward=build_eval_forward(cfg, THINGS, NUM_CLASSES))
+    mods = with_compute_dtype(torch, modules, torch.float32)
+    f64 = float_frames(torch, batch, torch.float64)
+    t0 = time.perf_counter()
+    finish = recorded_grouping(torch)
+    with parallel.process_group(device):
+        assert torch.distributed.get_backend() == "gloo"
+        slabs = row_slabs(spatial, {"target": target_size,
+                                    "source": source_size})
+        torch.cuda.reset_peak_memory_stats()
+        with spatial.hybrid():
+            ours = spatial_step_run(torch, step, cfg, copy.deepcopy(mods).to(
+                device, torch.float64), f64, noise, device)
+        numbers = {"rank": rank, "slabs": slabs, "metrics": ours["metrics"],
+                   "placement": spatial.hybrid_placement(f64, world),
+                   "peak_mib": torch.cuda.max_memory_allocated() / 2**20}
+        if rank == 0:
+            with parallel.replicated():
+                ref = spatial_step_run(torch, step, cfg, copy.deepcopy(
+                    mods).to(device, torch.float64), f64, noise, device)
+            numbers["against_one_process"] = spatial_distances(torch, ours,
+                                                               ref)
+        parallel.barrier()
+    numbers.update(finish())
+    numbers["seconds"] = time.perf_counter() - t0
+    (out_dir / f"empty{rank}.json").write_text(json.dumps(
+        numbers, default=float))
+
+
+def row_slabs(spatial, sizes):
+    """This rank's [first, stop) rows of each named image (height,
+    width) under ``spatial.rows()``."""
+    slabs = {}
+    with spatial.rows():
+        for name, (height, width) in sizes.items():
+            with spatial.image(height, width):
+                rows = spatial.row_slab(height)
+                slabs[name] = [rows.start, rows.stop]
+    return slabs
+
+
+def spatial_wide_rank(rank, world, port, out_dir):
+    """Phase 14 (h2), one of SPATIAL_WIDE_RANKS ranks (a two-node count)
+    started by ``torch.multiprocessing.spawn`` on card ``cuda:0`` over
+    gloo, on the published 384x1408 frame from phase 7's weights: the
+    target's 12 blocks on the first 12 ranks, empty slabs on the others,
+    the source's 16 blocks one a rank. The float64 teacher eval under
+    ``spatial.rows()``, its maps held equal to one process's on rank 0;
+    then SPATIAL_WIDE_TIMED_STEPS timed bfloat16 steps of the published
+    batch under the hybrid placement (every domain by rows: 2 side
+    samples do not divide 16) after a warm-up, which is instrumented (its
+    collectives counted and timed), and each rank's peak memory.
+    Writes ``out_dir/wide<rank>.json``."""
+    import os
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    import numpy as np
+    import torch
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    from codeps_torch.tasks.adapt import (build_eval_forward,
+                                          make_adapt_step, make_eval_step)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    started = time.perf_counter()
+    out_dir = Path(out_dir)
+    device = torch.device("cuda", 0)
+    modules = torch.load(out_dir / "modules.pt", weights_only=False)
+    target_size, source_size = (HEIGHT, WIDTH), (SOURCE_HEIGHT,
+                                                 SOURCE_WIDTH)
+    rng = np.random.default_rng(SEED + 14)
+    batch = spatial_batch(rng, target_size, source_size)
+    noise = automask_noise(torch, rng, target_size, source_size,
+                           adapt_config(target_size, source_size)
+                           .depth.num_recon_scales)
+    lead = rank == 0
+    finish = recorded_grouping(torch)
+    with parallel.process_group(device):
+        assert torch.distributed.get_backend() == "gloo"
+        numbers = {"rank": rank, "slabs": row_slabs(
+            spatial, {"target": target_size, "source": source_size}),
+            "start_s": time.perf_counter() - started}
+        # the float64 teacher eval, split and (rank 0) in one process
+        cfg = adapt_config(target_size, source_size)
+        cfg.tpu.compute_dtype = "float32"
+        eval_step = make_eval_step(cfg, THINGS, NUM_CLASSES)
+        teacher = with_compute_dtype(torch, copy.deepcopy(modules),
+                                     torch.float32).to(device,
+                                                       torch.float64).eval()
+        f64 = float_frames(torch, batch, torch.float64)
+        eval_batch = {"frames": f64["target"]["frames"], **f64["eval_gt"]}
+        t0 = time.perf_counter()
+        with spatial.rows():
+            results, stats = eval_step(teacher, eval_batch)
+        torch.cuda.synchronize()
+        numbers["eval_s"] = time.perf_counter() - t0
+        numbers["eval_on_rank"] = results is not None
+        if lead:
+            with parallel.replicated():
+                ref, ref_stats = eval_step(teacher, eval_batch)
+            numbers["eval_equal"] = {
+                key: bool(torch.equal(results[key], ref[key]))
+                for key in ("semantic", "instance", "panoptic")}
+            numbers["eval_equal"]["sem_conf"] = bool(torch.equal(
+                stats["sem_conf"], ref_stats["sem_conf"]))
+            numbers["eval_depth_err"] = float(
+                (results["depth"] - ref["depth"]).abs().max()
+                / ref["depth"].abs().max())
+            del ref, ref_stats
+        del teacher, results, stats
+        torch.cuda.empty_cache()
+        parallel.barrier()
+        # bfloat16, the package default, on uint8 frames
+        cfg = adapt_config(target_size, source_size)
+        cfg.tpu.compute_dtype = "bfloat16"
+        cfg.adapt.mixup.general.geom_augment = True
+        step = make_adapt_step(
+            cfg, list(cfg.semantics.class_weights), has_replay=True,
+            num_mixup=NUM_MIXUP, mixup_groups=(("cut_mixup", NUM_MIXUP),),
+            fused_mixup=True,
+            eval_forward=build_eval_forward(cfg, THINGS, NUM_CLASSES))
+        mods = with_compute_dtype(torch, copy.deepcopy(modules),
+                                  torch.bfloat16)
+        numbers["placement"] = spatial.hybrid_placement(batch, world)
+        numbers["step_ms"], numbers["metrics"] = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for index in range(1 + SPATIAL_WIDE_TIMED_STEPS):
+            # the warm-up is the instrumented step
+            if index == 0:
+                seconds, restore = timed_collectives(
+                    torch, list(SPLIT_COLLECTIVES))
+            parallel.barrier()
+            t0 = time.perf_counter()
+            try:
+                with spatial.hybrid():
+                    run = spatial_step_run(torch, step, cfg,
+                                           copy.deepcopy(mods).to(device),
+                                           batch, noise, device)
+            finally:
+                if index == 0:
+                    restore()
+            numbers["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            numbers["metrics"].append(run["metrics"])
+            if index == 0:
+                numbers["collectives_ms"] = {
+                    k: [t * 1e3 for t in v] for k, v in seconds.items()}
+        numbers["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        parallel.barrier()
+    numbers.update(finish())
+    numbers["seconds"] = time.perf_counter() - started
+    (out_dir / f"wide{rank}.json").write_text(json.dumps(
         numbers, default=float))
 
 
@@ -4381,6 +4584,22 @@ def main() -> int:
                        nprocs=SPATIAL_UNEVEN_RANKS, join=True)
         uneven = [json.loads((spatial_dir / f"uneven{r}.json").read_text())
                   for r in range(SPATIAL_UNEVEN_RANKS)]
+        # (h1) four ranks, fewer blocks than ranks at the published widths
+        torch_mp.spawn(spatial_empty_rank,
+                       args=(SPATIAL_EMPTY_RANKS, free_port(),
+                             str(spatial_dir)),
+                       nprocs=SPATIAL_EMPTY_RANKS, join=True)
+        empty = [json.loads((spatial_dir / f"empty{r}.json").read_text())
+                 for r in range(SPATIAL_EMPTY_RANKS)]
+        # (h2) the published frame on a two-node rank count
+        wide_start = time.perf_counter()
+        torch_mp.spawn(spatial_wide_rank,
+                       args=(SPATIAL_WIDE_RANKS, free_port(),
+                             str(spatial_dir)),
+                       nprocs=SPATIAL_WIDE_RANKS, join=True)
+        wide_seconds = time.perf_counter() - wide_start
+        wide = [json.loads((spatial_dir / f"wide{r}.json").read_text())
+                for r in range(SPATIAL_WIDE_RANKS)]
         # (d) the CLI under torchrun, every rank on card 0
         cli_numbers = spatial_cli(spatial_dir)
     finally:
@@ -4706,6 +4925,97 @@ def main() -> int:
     assert [n["launches"] for n in uneven] == [2] + [0] * (
         SPATIAL_UNEVEN_RANKS - 1), uneven
     assert all(n["copies"] == n["max_abs_err"] == 0 for n in uneven)
+    # (h1) four ranks, empty slabs
+    f64_empty = empty[0]["against_one_process"]
+    empty_worst = max([*f64_empty["loss_rel"].values(),
+                       *f64_empty["grad_rel_l2"].values(),
+                       *f64_empty["param_err"].values()])
+    print(f"spatial (h1) float64, {SPATIAL_EMPTY_RANKS} ranks sharing the "
+          f"card ({smi}), fewer blocks than ranks: target "
+          f"{SPATIAL_EMPTY_SIZES[0][0]}x{SPATIAL_EMPTY_SIZES[0][1]}, source "
+          f"and mixup {SPATIAL_EMPTY_SIZES[1][0]}x"
+          f"{SPATIAL_EMPTY_SIZES[1][1]}, rows of target / source by rank "
+          + ", ".join(f"{n['slabs']['target']} / {n['slabs']['source']}"
+                      for n in empty)
+          + f", against one process: losses rel "
+          f"{max(f64_empty['loss_rel'].values()):.3g}; gradients by "
+          f"relative L2 " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      f64_empty["grad_rel_l2"].items())
+          + f"; parameters {max(f64_empty['param_err'].values()):.3g}; "
+          f"replay features {f64_empty['features']:.3g}; sem_conf equal "
+          f"{f64_empty['sem_conf_equal']}, panoptic map equal "
+          f"{f64_empty['panoptic_equal']}; peak memory by rank "
+          f"{[round(n['peak_mib'], 1) for n in empty]} MiB; "
+          f"{[round(n['seconds'], 3) for n in empty]} s")
+    # (h2) sixteen ranks on the published frame
+    wide_lead = wide[0]
+    wide_ms = [max(n["step_ms"][i] for n in wide)
+               for i in range(1 + SPATIAL_WIDE_TIMED_STEPS)]
+    wide_calls = {k: len(v) for k, v in wide_lead["collectives_ms"].items()}
+    wide_collectives = {k: sum(v) for k, v in
+                        wide_lead["collectives_ms"].items()}
+    print(f"spatial (h2) {SPATIAL_WIDE_RANKS} ranks sharing the card "
+          f"({smi}), the published {HEIGHT}x{WIDTH} frame: target rows by "
+          f"rank {[n['slabs']['target'] for n in wide]}, source "
+          f"{[n['slabs']['source'] for n in wide]}; the float64 teacher "
+          f"eval split / one process: maps equal "
+          f"{wide_lead['eval_equal']}, depth max rel "
+          f"{wide_lead['eval_depth_err']:.3g}, split eval "
+          f"{[round(n['eval_s'], 3) for n in wide]} s; placement "
+          f"{wide_lead['placement']}")
+    print(f"spatial (h2) bfloat16 steps under the hybrid placement, "
+          f"{SPATIAL_WIDE_RANKS} ranks ({smi}): slowest rank "
+          f"{[round(t, 3) for t in wide_ms]} ms (host clock, first is the "
+          f"warm-up, instrumented); losses "
+          f"{wide_lead['metrics'][-1]['loss_total']:.6g}; "
+          f"peak memory by rank {[round(n['peak_mib'], 1) for n in wide]} "
+          f"MiB; in the instrumented step (synchronized, rank 0) the halo "
+          f"exchanges {wide_collectives['halo_rows']:.3f} ms in "
+          f"{wide_calls['halo_rows']} calls, the row gathers "
+          f"{wide_collectives['gather_rows']:.3f} ms in "
+          f"{wide_calls['gather_rows']}, the all-reduces "
+          f"{wide_collectives['all_reduce']:.3f} ms in "
+          f"{wide_calls['all_reduce']} and all-gathers "
+          f"{wide_collectives['all_gather']:.3f} ms in "
+          f"{wide_calls['all_gather']}, the gradient all-reduce "
+          f"{wide_collectives['sum_gradients']:.3f} ms; ranks up "
+          f"{max(n['start_s'] for n in wide):.3f} s, the spawn "
+          f"{wide_seconds:.3f} s")
+    assert empty_worst <= SPATIAL_UNEVEN_BOUND, f64_empty
+    assert f64_empty["features"] <= SPATIAL_UNEVEN_BOUND, f64_empty
+    assert f64_empty["sem_conf_equal"] and f64_empty["panoptic_equal"], \
+        f64_empty
+    for n in empty:
+        assert n["metrics"] == empty[0]["metrics"]
+        assert set(n["placement"].values()) == {"rows"}, n["placement"]
+    for name, index in (("target", 0), ("source", 1)):
+        height = SPATIAL_EMPTY_SIZES[index][0]
+        blocks = height // 32
+        assert [n["slabs"][name] for n in empty] == [
+            [32 * r, 32 * r + 32] for r in range(blocks)] + [
+            [height, height]] * (SPATIAL_EMPTY_RANKS - blocks), empty
+    assert [n["launches"] for n in empty] == [2] + [0] * (
+        SPATIAL_EMPTY_RANKS - 1), empty
+    assert all(n["copies"] == n["max_abs_err"] == 0 for n in empty)
+    # (h2): 12 target blocks and 4 empty slabs, 16 source blocks
+    assert [n["slabs"]["target"] for n in wide] == [
+        [32 * r, 32 * r + 32] for r in range(HEIGHT // 32)] + [
+        [HEIGHT, HEIGHT]] * (SPATIAL_WIDE_RANKS - HEIGHT // 32), wide
+    assert all(n["slabs"]["source"][1] - n["slabs"]["source"][0] == 32
+               for n in wide), wide
+    assert all(wide_lead["eval_equal"].values()), wide_lead["eval_equal"]
+    assert [n["eval_on_rank"] for n in wide] == [True] + [False] * (
+        SPATIAL_WIDE_RANKS - 1)
+    for n in wide:
+        assert n["metrics"] == wide_lead["metrics"]
+        assert all(math.isfinite(v) for m in n["metrics"]
+                   for v in m.values()), n["metrics"]
+        assert set(n["placement"].values()) == {"rows"}, n["placement"]
+        assert n["copies"] == n["max_abs_err"] == 0
+    # rank 0: the split eval and one process's, then an eval a step
+    assert [n["launches"] for n in wide] == [
+        2 + 1 + SPATIAL_WIDE_TIMED_STEPS] + [0] * (
+        SPATIAL_WIDE_RANKS - 1), [n["launches"] for n in wide]
     spatial_launches = {
         "spatial_step": sum(n["exactness"]["launches"] for n in sranks),
         "spatial_stream": sum(part["split"]["launches"] for n in sranks
@@ -4717,7 +5027,9 @@ def main() -> int:
         "spatial_uneven_step": sum(n["launches"] for n in uneven),
         "spatial_hybrid_step": sum(n["hybrid"]["launches"] for n in sranks),
         "spatial_stream_rows": sum(n["stream"]["bfloat16"]["rows"][
-            "launches"] for n in sranks)}
+            "launches"] for n in sranks),
+        "spatial_empty_step": sum(n["launches"] for n in empty),
+        "spatial_wide": sum(n["launches"] for n in wide)}
     spatial_copies = {
         "spatial_step": sum(n["exactness"]["copies"] for n in sranks),
         "spatial_stream": sum(part["split"]["copies"] for n in sranks
@@ -4729,7 +5041,9 @@ def main() -> int:
         "spatial_uneven_step": sum(n["copies"] for n in uneven),
         "spatial_hybrid_step": sum(n["hybrid"]["copies"] for n in sranks),
         "spatial_stream_rows": sum(n["stream"]["bfloat16"]["rows"][
-            "copies"] for n in sranks)}
+            "copies"] for n in sranks),
+        "spatial_empty_step": sum(n["copies"] for n in empty),
+        "spatial_wide": sum(n["copies"] for n in wide)}
     print(f"spatial grouping launches, (g) the hybrid steps "
           f"{hy['launches']} on rank 0, "
           f"{sranks[1]['hybrid']['launches']} on rank 1, the pure-rows "
@@ -4795,6 +5109,22 @@ def main() -> int:
                    "float64": f64_uneven,
                    "bound": SPATIAL_UNEVEN_BOUND,
                    "peak_mib": [n["peak_mib"] for n in uneven]},
+        "empty": {"ranks": SPATIAL_EMPTY_RANKS,
+                  "sizes": SPATIAL_EMPTY_SIZES,
+                  "slabs": [n["slabs"] for n in empty],
+                  "float64": f64_empty, "bound": SPATIAL_UNEVEN_BOUND,
+                  "peak_mib": [n["peak_mib"] for n in empty]},
+        "wide": {"ranks": SPATIAL_WIDE_RANKS,
+                 "slabs": [n["slabs"] for n in wide],
+                 "eval_equal": wide_lead["eval_equal"],
+                 "eval_depth_err": wide_lead["eval_depth_err"],
+                 "eval_s": [n["eval_s"] for n in wide],
+                 "step_ms": wide_ms,
+                 "step_ms_by_rank": [n["step_ms"] for n in wide],
+                 "peak_mib": [n["peak_mib"] for n in wide],
+                 "collectives_ms": wide_collectives,
+                 "collective_calls": wide_calls,
+                 "spawn_s": wide_seconds},
         "flow": {"float64": f64_flow,
                  "kept_share": fl["float64"]["kept_share"],
                  "step_ms": {"split": flow_split_ms,
@@ -4811,12 +5141,14 @@ def main() -> int:
                     "hybrid": [n["hybrid_s"] for n in sranks],
                     "stream": [n["stream_s"] for n in sranks],
                     "flow": [n["flow_s"] for n in sranks],
-                    "uneven": [n["seconds"] for n in uneven]}}
+                    "uneven": [n["seconds"] for n in uneven],
+                    "empty": [n["seconds"] for n in empty],
+                    "wide": [n["seconds"] for n in wide]}}
     spatial_err = max(ex["max_abs_err"], split_stream["max_abs_err"],
                       st64["split"]["max_abs_err"],
                       fs["split"]["max_abs_err"], flow_grouped["max_abs_err"],
                       hy["max_abs_err"], rows_stream["max_abs_err"],
-                      *(n["max_abs_err"] for n in uneven))
+                      *(n["max_abs_err"] for n in uneven + empty + wide))
     print(f"phase 14: {time.perf_counter() - phase_start:.3f} s")
 
     phase("15 result")

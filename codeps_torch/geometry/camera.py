@@ -51,8 +51,8 @@ def backproject(depth: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
     _, _, height, width = depth.shape
     dtype, device = depth.dtype, depth.device
     u = torch.arange(width, dtype=dtype, device=device)[None, None, None, :]
-    v = torch.arange(spatial.row_offset(height),
-                     spatial.row_offset(height) + height, dtype=dtype,
+    first = spatial.row_offset(height, width)
+    v = torch.arange(first, first + height, dtype=dtype,
                      device=device)[None, None, :, None]
     fx, fy, cx, cy = _columns(intrinsics, dtype, 3)
     x3d = depth * (u - cx) / fx

@@ -32,7 +32,8 @@ def warp_coordinates(intrinsics: torch.Tensor, depth: torch.Tensor,
         points.
       object_motion: optional (B, 3, H, W) additive scene flow.
     """
-    height, width = spatial.global_rows(depth.shape[-2]), depth.shape[-1]
+    width = depth.shape[-1]
+    height = spatial.global_rows(depth.shape[-2], width)
     points = cam.backproject(depth, intrinsics)
     points = pose_lib.transform_points(transform, points)
     if object_motion is not None:

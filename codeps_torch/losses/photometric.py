@@ -45,8 +45,12 @@ NoiseFn = Callable[[tuple], torch.Tensor]
 def _avg_pool_3x3_reflect(x: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 average pool after a 1-pixel reflection pad."""
     if spatial.active():
-        return F.avg_pool2d(spatial.halo_rows(
-            F.pad(x, (1, 1, 0, 0), mode="reflect"), 1, 1, "reflect"), 3, 1)
+        # the rows first, at the level's width
+        def pool(rows):
+            return F.avg_pool2d(F.pad(rows, (1, 1, 0, 0), mode="reflect"),
+                                3, 1)
+        ext = spatial.halo_rows(x, 1, 1, "reflect")
+        return pool(ext) if x.shape[-2] else spatial.on_empty(pool, ext, 3)
     return F.avg_pool2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), 3, 1)
 
 

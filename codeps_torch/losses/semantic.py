@@ -104,7 +104,8 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
         # the global batch: every rank's rows, every rank's images (a
         # rank may hold none of a mixup group's), or B rows a rank
         if spatial.active():
-            pixels = loss[:, 0].numel() * spatial.global_rows(loss.shape[1])
+            pixels = loss.shape[0] * loss.shape[2] * spatial.global_rows(
+                *loss.shape[1:3])
         elif spatial.images_active():
             pixels = math.prod(loss.shape[1:]) * spatial.global_images(
                 loss.shape[0])

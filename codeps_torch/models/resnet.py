@@ -34,6 +34,7 @@ from torch import nn
 
 from codeps_torch import parallel
 from codeps_torch.models.precision import ComputeDtype
+from codeps_torch.parallel import spatial
 from codeps_torch.parallel.spatial import Conv2d, MaxPool2d
 
 _STAGES = {
@@ -53,14 +54,18 @@ class _GlobalBatchNorm(torch.autograd.Function):
     output gradient and of its product with the normalized input.
     Statistics and arithmetic in float32 (float64 for a float64 input);
     the output in the input's dtype. Returns (output, mean, biased
-    variance)."""
+    variance). A rank with no values (an empty row slab) adds a count,
+    mean and M2 of 0."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         dtype = torch.promote_types(x.dtype, torch.float32)
         xs = x.to(dtype)
         count = x.numel() // x.shape[1]
-        var_r, mean_r = torch.var_mean(xs, dim=(0, 2, 3), correction=0)
+        if count:
+            var_r, mean_r = torch.var_mean(xs, dim=(0, 2, 3), correction=0)
+        else:
+            var_r = mean_r = xs.new_zeros(x.shape[1])
         local = torch.stack([torch.full_like(mean_r, count), mean_r,
                              var_r * count])
         n_r, mean_r, m2_r = parallel.all_gather(local).unbind(1)
@@ -99,15 +104,26 @@ class _GlobalBatchNormCuda(torch.autograd.Function):
     counts and combined by Chan's rule, the backward's two per-channel
     sums all-reduced. The running statistics are left to the caller
     (torch's would move the variance with the unbiased one), which gets
-    the biased variance back as ``invstd**-2 - eps``."""
+    the biased variance back as ``invstd**-2 - eps``. A rank with no
+    values (an empty row slab) runs the same collectives with zeros, as
+    torch's does; the combination reads only the ranks that hold rows
+    (``spatial.holders``, the first ones), since the kernel would take a
+    zero inverse deviation for an infinite variance."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         x = x.contiguous()
-        mean_r, invstd_r = torch.batch_norm_stats(x, eps)
-        count = mean_r.new_full((1,), x.numel() // x.shape[1])
+        channels = x.shape[1]
+        if x.numel():
+            mean_r, invstd_r = torch.batch_norm_stats(x, eps)
+        else:
+            mean_r = invstd_r = x.new_zeros(
+                channels, dtype=torch.promote_types(x.dtype, torch.float32))
+        count = mean_r.new_full((1,), x.numel() // channels)
+        held = spatial.holders()
         mean_all, invstd_all, counts = parallel.all_gather(
-            torch.cat([mean_r, invstd_r, count])).split(x.shape[1], dim=1)
+            torch.cat([mean_r, invstd_r, count]))[:held].split(channels,
+                                                               dim=1)
         counts = counts.reshape(-1)
         # scratch running statistics (momentum 0) set the kernel's type to
         # the statistics'; without them it is the input's, and the counts
@@ -119,12 +135,17 @@ class _GlobalBatchNormCuda(torch.autograd.Function):
                               counts.to(torch.int32))
         var = invstd.pow(-2) - eps
         ctx.mark_non_differentiable(mean, var)
+        if not x.numel():
+            return torch.empty_like(x), mean, var
         return torch.batch_norm_elemt(x, weight, bias, mean, invstd,
                                       eps), mean, var
 
     @staticmethod
     def backward(ctx, grad_out, _grad_mean, _grad_var):
         x, weight, mean, invstd, counts = ctx.saved_tensors
+        if not x.numel():
+            parallel.all_reduce(mean.new_zeros(2 * x.shape[1]))
+            return torch.empty_like(x), None, None, None
         grad_out = grad_out.contiguous()
         sum_dy, sum_dy_xmu, grad_weight, grad_bias = \
             torch.batch_norm_backward_reduce(grad_out, x, mean, invstd,
@@ -150,16 +171,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     running statistics and the backward, as the JAX package's sharded
     step does (``codeps_tpu/tasks/train.py:8-12``), also after
     ``keep_running_stats`` (the global batch of a row split,
-    ``parallel/spatial.py``, is every rank's rows); a group of one takes
-    the single-process path."""
+    ``parallel/spatial.py``, is every rank's rows; where one rank holds
+    every row and the others' slabs are empty, that rank's batch, with no
+    exchange); a group of one takes the single-process path."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         global_batch = parallel.group_size() > 1
         if not self.training or not (self.track_running_stats
                                      or global_batch):
+            if not x.shape[-2] and spatial.active():
+                # a row split's empty slab: the others' type and graph
+                return spatial.on_empty(super().forward, x)
             return super().forward(x)
         if not self.track_running_stats:
             # train mode after keep_running_stats, over the global batch
+            if spatial.holders() == 1:
+                # one rank holds every row (the others' slabs are empty):
+                # its own batch, with no exchange
+                return F.batch_norm(x, None, None, self.weight, self.bias,
+                                    True, 0.0, self.eps)
             fn = _GlobalBatchNormCuda if x.is_cuda else _GlobalBatchNorm
             return fn.apply(x, self.weight, self.bias, self.eps)[0]
         if global_batch:

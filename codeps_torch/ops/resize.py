@@ -9,10 +9,11 @@ clamped, in integer arithmetic: the JAX package's rule, which torch's
 
 Inside a row split (``parallel/spatial.py``) an NCHW input is this rank's
 slab of rows and ``size`` the slab of the output, both levels of the
-slabs of ``spatial.image``: the bilinear and the
-general nearest resize take each output row's source rows from the
+slabs of ``spatial.image``: the bilinear and the general nearest
+resize take each output row's source rows from the
 global coordinates, with the neighbouring slabs' rows they reach as a
-halo; the 2x nearest upsampling of an aligned slab needs none.
+halo; the 2x nearest upsampling of an aligned slab needs none. A rank
+with an empty slab joins the halo's exchange and gets an empty slab.
 """
 
 from __future__ import annotations
@@ -44,21 +45,26 @@ def _source_rows(in_rows: int, out_rows: int, mode: str,
     return first, second, src - first
 
 
-def _resize_rows(x: torch.Tensor, out_rows: int, mode: str,
-                 align_corners: bool) -> torch.Tensor:
-    """The rows axis (-2) of this rank's slab ``x`` resized to its slab of
-    ``out_rows`` output rows (the slabs of ``spatial.slabs``)."""
-    ins, outs = spatial.slabs(x.shape[-2]), spatial.slabs(out_rows)
+def _resize_rows(x: torch.Tensor, size: tuple[int, int], mode: str,
+                 align_corners: bool, columns) -> torch.Tensor:
+    """This rank's slab ``x`` resized to its slab of ``size``: the slab
+    with the rows its output rows reach past it (the halo, at the input's
+    width), its columns resized by ``columns``, then each output row from
+    its source rows (the slabs of ``spatial.slabs``)."""
+    ins = spatial.slabs(x.shape[-2], x.shape[-1])
+    outs = spatial.slabs(size[0], size[1])
     first, second, weight = _source_rows(sum(n for _, n in ins),
                                          sum(n for _, n in outs), mode,
                                          align_corners)
     # one halo for every rank: the rows any slab reaches past its own
     top = bottom = 0
     for (start, height), (out_start, out_height) in zip(ins, outs):
+        if not out_height:
+            continue
         mine = slice(out_start, out_start + out_height)
         top = max(top, start - int(first[mine].min()))
         bottom = max(bottom, int(second[mine].max()) - start - height + 1)
-    ext = spatial.halo_rows(x, top, bottom, "replicate")
+    ext = columns(spatial.halo_rows(x, top, bottom, "replicate"))
     out_start, out_height = outs[spatial.index()]
     mine = slice(out_start, out_start + out_height)
     base = ins[spatial.index()][0] - top
@@ -80,19 +86,28 @@ def resize_bilinear_nchw(x: torch.Tensor, size: tuple[int, int],
     if spatial.active():
         # in float32 at least, rounded once to the input's type, as
         # torch's kernel rounds its bfloat16 output
+        def interpolate(rows):
+            return F.interpolate(rows, size=(rows.shape[-2], size[1]),
+                                 mode="bilinear",
+                                 align_corners=align_corners,
+                                 antialias=False)
+
+        def columns(rows):
+            return interpolate(rows) if rows.shape[-2] else \
+                spatial.on_empty(interpolate, rows)
         wide = x.to(torch.promote_types(x.dtype, torch.float32))
-        wide = F.interpolate(wide, size=(x.shape[-2], size[1]),
-                             mode="bilinear", align_corners=align_corners,
-                             antialias=False)
-        return _resize_rows(wide, size[0], "bilinear",
-                            align_corners).to(x.dtype)
+        return _resize_rows(wide, size, "bilinear", align_corners,
+                            columns).to(x.dtype)
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=align_corners, antialias=False)
 
 
 def upsample_nearest_2x_nchw(x: torch.Tensor) -> torch.Tensor:
     """2x nearest upsampling of (B, C, H, W)."""
-    return F.interpolate(x, scale_factor=2, mode="nearest")
+    def upsample(rows):
+        return F.interpolate(rows, scale_factor=2, mode="nearest")
+    # a row split's empty slab, which torch's kernel refuses
+    return upsample(x) if x.shape[-2] else spatial.on_empty(upsample, x)
 
 
 def resize_nearest_nchw(x: torch.Tensor,
@@ -106,8 +121,8 @@ def resize_nearest_nchw(x: torch.Tensor,
         dst = torch.arange(out_size, device=x.device)
         return torch.clamp(dst * in_size // out_size, max=in_size - 1)
     if spatial.active():
-        return _resize_rows(x[..., index(width, size[1])], size[0],
-                            "nearest", False)
+        return _resize_rows(x, size, "nearest", False,
+                            lambda rows: rows[..., index(width, size[1])])
     return x[..., index(height, size[0])[:, None], index(width, size[1])]
 
 

@@ -245,29 +245,46 @@ def gather_objects(obj) -> list:
 def average_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
     """Replaces each parameter's gradient by its mean over the ranks, in
     one all-reduce of the flattened gradients, so that every rank takes
-    the same optimizer step. Parameters without a gradient (the same on
-    every rank: the graph is the same) are left out."""
+    the same optimizer step. A parameter that no rank gave a gradient
+    keeps none."""
     _reduce_gradients(parameters, average=True)
 
 
 def sum_gradients(parameters: Iterable[torch.nn.Parameter]) -> None:
     """Replaces each parameter's gradient by its sum over the ranks, in one
     all-reduce of the flattened gradients: the gradient of the sum of the
-    ranks' losses (the row split's shares, ``parallel/spatial.py``)."""
+    ranks' losses (the row split's shares, ``parallel/spatial.py``). A
+    parameter that no rank gave a gradient keeps none."""
     _reduce_gradients(parameters, average=False)
 
 
 def _reduce_gradients(parameters, average: bool) -> None:
+    """Every rank sends the same layout: each parameter that requires a
+    gradient (zeros where this rank has none: a row split's rank with
+    empty slabs may reach fewer parameters than the others), then a flag
+    a parameter, 1 where this rank has a gradient. A parameter gets the
+    reduced gradient where any rank had one."""
     if not active():
         return
-    grads = [p.grad for p in parameters if p.grad is not None]
-    if not grads:
+    params = [p for p in parameters if p.requires_grad]
+    if not params:
         return
-    flat = torch.cat([g.reshape(-1) for g in grads])
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    flags = torch.tensor([p.grad is not None for p in params],
+                         dtype=grads[0].dtype, device=grads[0].device)
+    flat = torch.cat([g.reshape(-1) for g in grads] + [flags])
     dist.all_reduce(flat)
     if average:
         flat /= dist.get_world_size()
+    # the flags reach the host only where this rank lacks a gradient
+    held = ((flat[-len(params):] > 0).tolist()
+            if any(p.grad is None for p in params) else [True] * len(params))
     offset = 0
-    for grad in grads:
-        grad.copy_(flat[offset:offset + grad.numel()].view_as(grad))
+    for param, grad, has in zip(params, grads, held):
+        part = flat[offset:offset + grad.numel()].view_as(grad)
+        if param.grad is not None:
+            grad.copy_(part)
+        elif has:
+            param.grad = part.clone()
         offset += grad.numel()

@@ -13,17 +13,34 @@ every image tensor of the step:
     (the encoder's output stride) out to the N ranks as evenly as whole
     blocks allow, the larger slabs first (384 rows on 8 ranks: 2, 2, 2,
     2, 1, 1, 1, 1 blocks), so that every strided conv, pool and
-    power-of-two resize sees whole rows on every rank. ``image(height)``
-    names the full-resolution height of the image a block of code works
-    on: a slab's row count at any level of its pyramid maps to the global
-    count and offset through that image's table (``row_slab``,
-    ``rows_of``, ``global_rows``, ``row_offset``);
+    power-of-two resize sees whole rows on every rank. With fewer blocks
+    than ranks the first ranks take a block each and the rest an empty
+    slab at the image's bottom (384 rows on 16 ranks: 12 ranks of one
+    block, 4 of none), as the JAX package's GSPMD split takes any height
+    over any mesh. ``image(height, width)`` names the full-resolution
+    size of the image a block of code works on. A tensor's level of its
+    pyramid, and with it every rank's slab there, is read from this
+    rank's row count where every rank holds rows; where some slab is
+    empty (0 rows at every level), from the tensor's width, which is never
+    split, on every rank (``slabs``): every rank finds the same table
+    with no collective. The level's table maps a slab to the global row
+    count and offset (``row_slab``, ``rows_of``, ``global_rows``,
+    ``row_offset``);
   - ``halo_rows`` fetches the rows a window reaches across a slab's edge
     from the neighbours (an all-gather of every rank's boundary rows) and
-    pads only at the image's own edges; its backward returns the halo
-    rows' gradients to their owners. ``Conv2d``, ``MaxPool2d`` and
-    ``ReflectionPad2d`` are the torch modules (same parameters and state
-    dict) that run through it on a slab;
+    pads only at the image's own edges, the bottom one on the last rank
+    that holds rows; its backward returns the halo rows' gradients to
+    their owners. ``Conv2d``, ``MaxPool2d`` and ``ReflectionPad2d`` are
+    the torch modules (same parameters and state dict) that run through
+    it on a slab (columns are padded after the halo, so that the halo
+    sees the level's width);
+  - a rank with an empty slab runs every collective the others run, in
+    the same order, with zero rows of its own: it sends zeros of the
+    halo's shape, pads to the largest slab for a gather, adds 0 to
+    sums and a count of 0 to batch statistics. Each layer returns it an
+    empty slab of the type the others' rows have, which autograd links
+    to the layer's input and parameters as theirs (``on_empty``), so the
+    rank joins every backward exchange too;
   - ``gather_rows`` joins the slabs of a map (padded to the largest slab
     for the all-gather, then trimmed): the teacher eval's outputs,
     and a map that a loss reads whole (the depth that the photometric
@@ -77,13 +94,13 @@ from codeps_torch.parallel import dist
 # a slab is whole blocks of the encoder's output stride
 ROW_ALIGN = 32
 
-# "height": the full-resolution height of ``image()``'s block; "hybrid":
-# the step places its side domains as ``hybrid_placement`` says; "images":
-# the block's tensors hold this rank's images of a domain; "samples": the
-# global sample count of the block's leading axis (None: N times the
-# rank's)
-_ROWS = {"on": False, "height": None, "hybrid": False, "images": False,
-         "samples": None}
+# "height", "width": the full-resolution size of ``image()``'s block;
+# "hybrid": the step places its side domains as ``hybrid_placement``
+# says; "images": the block's tensors hold this rank's images of a domain;
+# "samples": the global sample count of the block's leading axis (None: N
+# times the rank's)
+_ROWS = {"on": False, "height": None, "width": None, "hybrid": False,
+         "images": False, "samples": None}
 
 # the domains of the step's batch that may go by images
 SIDE_DOMAINS = ("source", "target_replay", "mixup")
@@ -203,41 +220,46 @@ def replicated():
 
 
 @contextlib.contextmanager
-def image(height: int) -> Iterator[None]:
-    """Within the block the slabs are those of an image of ``height``
-    rows at full resolution: the tables of ``slab_rows`` scaled to each
-    level of its pyramid. Every row-split function that maps a slab to
-    its image (cutting, gathering, resizing, global means and counts)
-    reads it."""
-    before = _ROWS["height"]
-    _ROWS["height"] = height
+def image(height: int, width: int) -> Iterator[None]:
+    """Within the block the slabs are those of an image of ``height`` x
+    ``width`` pixels at full resolution: the tables of ``slab_rows``
+    scaled to each level of its pyramid. Every row-split function that
+    maps a slab to its image (cutting, gathering, resizing, global means
+    and counts) reads it. Where some rank's slab is empty a tensor's level
+    is read from its width (``slabs``): that rank has no rows to read it
+    from."""
+    before = _ROWS["height"], _ROWS["width"]
+    _ROWS["height"], _ROWS["width"] = height, width
     try:
         yield
     finally:
-        _ROWS["height"] = before
+        _ROWS["height"], _ROWS["width"] = before
 
 
 def slab_rows(height: int, ranks: int, rank: int) -> tuple[int, int]:
     """(first row, row count) of rank ``rank``'s slab when ``height`` rows
     split over ``ranks``: its blocks of ROW_ALIGN rows dealt out as evenly
     as whole blocks allow, the larger slabs first (512 rows on 3 ranks: 6,
-    5 and 5 blocks). Raises ValueError unless every rank gets a whole
-    block at least."""
-    blocks = height // ROW_ALIGN
-    if height % ROW_ALIGN or blocks < ranks:
+    5 and 5 blocks). With fewer blocks than ranks the first ``height //
+    ROW_ALIGN`` ranks take one block each and the others an empty slab at
+    the image's bottom, ``(height, 0)`` (32 rows on 2 ranks: (0, 32) and
+    (32, 0)): the empty slabs come last, so the ranks that hold rows are
+    neighbours and the last of them holds the image's bottom edge. Raises
+    ValueError unless ``height`` is a multiple of ROW_ALIGN."""
+    if height % ROW_ALIGN or height <= 0:
         raise ValueError(
             f"a height of {height} rows does not split over {ranks} ranks "
             f"into slabs of whole {ROW_ALIGN}-row blocks: spatial sharding "
-            f"needs a multiple of {ROW_ALIGN} rows with at least {ranks} "
-            f"blocks ({ROW_ALIGN * ranks} rows)")
-    per_rank, extra = divmod(blocks, ranks)
+            f"needs a positive multiple of {ROW_ALIGN} rows")
+    per_rank, extra = divmod(height // ROW_ALIGN, ranks)
     first = rank * per_rank + min(rank, extra)
     return first * ROW_ALIGN, (per_rank + (rank < extra)) * ROW_ALIGN
 
 
 def check_height(height: int) -> None:
     """Raises ValueError unless ``height`` splits over ``count()`` ranks
-    into slabs of whole ROW_ALIGN-row blocks."""
+    into slabs of whole ROW_ALIGN-row blocks (any positive multiple of
+    ROW_ALIGN: with fewer blocks than ranks some slabs are empty)."""
     slab_rows(height, count(), 0)
 
 
@@ -245,25 +267,58 @@ def _blocks() -> list[tuple[int, int]]:
     """Each rank's (first block, block count) of ``image()``'s rows."""
     height = _ROWS["height"]
     if height is None:
-        raise RuntimeError("a row split needs the height of the image its "
-                           "slabs belong to: spatial.image(height)")
+        raise RuntimeError("a row split needs the size of the image its "
+                           "slabs belong to: spatial.image(height, width)")
     return [(first // ROW_ALIGN, size // ROW_ALIGN) for first, size in
             (slab_rows(height, count(), r) for r in range(count()))]
+
+
+def holders() -> int:
+    """The ranks that hold rows of ``image()`` (the first ones; the others'
+    slabs are empty), or every rank of the group outside a row split."""
+    if not active():
+        return dist.world_size() if dist.active() else 1
+    return sum(1 for _, size in _blocks() if size)
+
+
+def _width_level(width: int) -> int:
+    """The rows of a ROW_ALIGN-row block at the level of ``image()``'s
+    pyramid whose tensors are ``width`` columns wide: ROW_ALIGN at full
+    resolution, half as many a level down (a strided conv halves the
+    width, rounding up), 1 at stride ROW_ALIGN."""
+    full = _ROWS["width"]
+    for shift in range(ROW_ALIGN.bit_length()):
+        if width == -(-full >> shift):
+            return ROW_ALIGN >> shift
+    raise ValueError(f"a width of {width} columns is no level of the "
+                     f"pyramid of an image {full} columns wide: with empty "
+                     f"slabs a row split reads a tensor's level from its "
+                     f"width")
 
 
 def _scaled(blocks, per_block: int) -> list[tuple[int, int]]:
     return [(first * per_block, size * per_block) for first, size in blocks]
 
 
-def slabs(rows: int) -> list[tuple[int, int]]:
+def slabs(rows: int, width: int) -> list[tuple[int, int]]:
     """Each rank's (first row, row count) at the level of ``image()``'s
-    pyramid where this rank's slab has ``rows`` rows."""
+    pyramid where this rank's slab has ``rows`` rows and ``width``
+    columns. Where every rank holds rows the level is read from ``rows``
+    (a resize may change the width alone); where some slab is empty, from
+    ``width`` on every rank (an empty slab has 0 rows at every level), and
+    ``rows`` must fit it."""
     blocks = _blocks()
     mine = blocks[index()][1]
-    if rows % mine:
-        raise ValueError(f"a slab of {rows} rows is not whole rows for each "
-                         f"of its {mine} blocks")
-    return _scaled(blocks, rows // mine)
+    if all(size for _, size in blocks):
+        if rows % mine:
+            raise ValueError(f"a slab of {rows} rows is not whole rows for "
+                             f"each of its {mine} blocks")
+        return _scaled(blocks, rows // mine)
+    per_block = _width_level(width)
+    if rows != mine * per_block:
+        raise ValueError(f"a slab of {rows} rows and {width} columns is not "
+                         f"{per_block} rows for each of its {mine} blocks")
+    return _scaled(blocks, per_block)
 
 
 def row_slab(height: int) -> slice:
@@ -424,19 +479,20 @@ def gather_images(x: torch.Tensor) -> torch.Tensor:
     return dist.all_gather(x).flatten(0, 1)
 
 
-def global_rows(local: int) -> int:
-    """The global row count of a slab of ``local`` rows."""
+def global_rows(local: int, width: int) -> int:
+    """The global row count of a slab of ``local`` rows and ``width``
+    columns."""
     if not active():
         return local
-    return sum(size for _, size in slabs(local))
+    return sum(size for _, size in slabs(local, width))
 
 
-def row_offset(local: int) -> int:
+def row_offset(local: int, width: int) -> int:
     """The global index of the first row of this rank's slab of ``local``
-    rows."""
+    rows and ``width`` columns."""
     if not active():
         return 0
-    return slabs(local)[index()][0]
+    return slabs(local, width)[index()][0]
 
 
 # ------------------------------------------------------ halo and gather
@@ -485,41 +541,57 @@ def _edge_backward(grad_mid: torch.Tensor, grad_pad: torch.Tensor,
 
 class _Halo(torch.autograd.Function):
     """(.., top + h + bottom, W): the slab with its neighbours' boundary
-    rows, padded by ``edge`` at the image's own top and bottom. A
-    reflection at the image's edge that reaches past the edge rank's slab
-    (a slab of one block has one row at stride 32) takes the rows beyond
-    from the neighbour's boundary rows, and its backward returns their
-    gradients to the neighbour."""
+    rows, padded by ``edge`` at the image's own top (rank 0) and bottom
+    (the last rank that holds rows). A reflection at the image's edge
+    that reaches past the edge rank's slab (a slab of one block has one
+    row at stride 32) takes the rows beyond from the neighbour's boundary
+    rows, and its backward returns their gradients to the neighbour. A
+    rank with an empty slab sends zeros of the others' shape, both ways,
+    and gets an empty slab back."""
 
     @staticmethod
     def forward(ctx, x, top, bottom, edge):
         height = x.shape[-2]
-        # the same on every rank: the smallest slab at this level
-        smallest = min(size for _, size in slabs(height))
+        sizes = [size for _, size in slabs(height, x.shape[-1])]
+        # the same on every rank: the ranks that hold rows (the first
+        # ones) and their smallest slab at this level
+        last = sum(1 for size in sizes if size) - 1
+        smallest = min(sizes[:last + 1])
         if top > smallest or bottom > smallest:
             raise ValueError(f"a halo of {top} + {bottom} rows reaches past "
                              f"the smallest slab of {smallest} rows")
-        ctx.top, ctx.bottom, ctx.edge = top, bottom, edge
-        rank, world = dist.rank(), dist.world_size()
+        ctx.top, ctx.bottom, ctx.edge, ctx.last = top, bottom, edge, last
+        rank = dist.rank()
+        if rank > last:
+            _gather_list(x.new_zeros((*x.shape[:-2], bottom + top,
+                                      x.shape[-1])))
+            return x.clone()
         # each rank's first `bottom` rows (the halo below its upper
         # neighbour) and last `top` rows (above its lower neighbour)
         parts = _gather_list(torch.cat([x[..., :bottom, :],
                                         x[..., height - top:, :]], dim=-2))
-        below = parts[rank + 1][..., :bottom, :] if rank < world - 1 else None
+        below = parts[rank + 1][..., :bottom, :] if rank < last else None
         above = parts[rank - 1][..., bottom:, :] if rank > 0 else None
         reflect = edge == "reflect"
+        top_rows, bottom_rows = above, below
         if rank == 0:
-            above = _edge_rows(torch.cat([x, below], dim=-2) if reflect
-                               else x, top, "top", edge)
-        if rank == world - 1:
-            below = _edge_rows(torch.cat([above, x], dim=-2) if reflect
-                               else x, bottom, "bottom", edge)
-        return torch.cat([above, x, below], dim=-2)
+            top_rows = _edge_rows(torch.cat([x, below], dim=-2)
+                                  if reflect and below is not None else x,
+                                  top, "top", edge)
+        if rank == last:
+            bottom_rows = _edge_rows(torch.cat([above, x], dim=-2)
+                                     if reflect and above is not None
+                                     else x, bottom, "bottom", edge)
+        return torch.cat([top_rows, x, bottom_rows], dim=-2)
 
     @staticmethod
     def backward(ctx, grad):
-        top, bottom, edge = ctx.top, ctx.bottom, ctx.edge
-        rank, world = dist.rank(), dist.world_size()
+        top, bottom, edge, last = ctx.top, ctx.bottom, ctx.edge, ctx.last
+        rank = dist.rank()
+        if rank > last:
+            _gather_list(grad.new_zeros((*grad.shape[:-2], top + bottom,
+                                         grad.shape[-1])))
+            return grad.clone(), None, None, None
         height = grad.shape[-2] - top - bottom
         grad_up = grad[..., :top, :]
         grad_down = grad[..., top + height:, :]
@@ -527,7 +599,8 @@ class _Halo(torch.autograd.Function):
         # the gradients of the upper neighbour's last `top` rows and of
         # the lower neighbour's first `bottom` rows
         to_up, to_down = grad_up.clone(), grad_down.clone()
-        if rank == 0 and edge == "reflect":
+        reflect = edge == "reflect"
+        if rank == 0 and reflect and rank < last:
             # the reflected rows of the slab and the lower neighbour's
             ext = torch.cat([grad_mid, torch.zeros_like(to_down)], dim=-2)
             _edge_backward(ext, grad_up, "top", edge)
@@ -535,14 +608,14 @@ class _Halo(torch.autograd.Function):
                 ..., height:, :]
         elif rank == 0:
             _edge_backward(grad_mid, grad_up, "top", edge)
-        if rank == world - 1 and edge == "reflect":
+        if rank == last and reflect and rank > 0:
             ext = torch.cat([torch.zeros_like(to_up), grad_mid], dim=-2)
             _edge_backward(ext, grad_down, "bottom", edge)
             grad_mid, to_up = ext[..., top:, :], to_up + ext[..., :top, :]
-        elif rank == world - 1:
+        elif rank == last:
             _edge_backward(grad_mid, grad_down, "bottom", edge)
         parts = _gather_list(torch.cat([to_up, to_down], dim=-2))
-        if rank < world - 1:
+        if rank < last:
             grad_mid[..., height - top:, :] += parts[rank + 1][..., :top, :]
         if rank > 0:
             grad_mid[..., :bottom, :] += parts[rank - 1][..., top:, :]
@@ -554,7 +627,8 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int,
     """``x`` with ``top`` rows above and ``bottom`` below (axis -2): the
     neighbouring slabs' rows, and at the image's own edges ``edge``
     padding ("zeros", "reflect", "replicate" or "-inf"). Outside a row
-    split, that padding of the whole image. Differentiable: a halo row's
+    split, that padding of the whole image. On a rank whose slab is empty,
+    an empty slab (after the exchange). Differentiable: a halo row's
     gradient goes back to the rank that holds it."""
     if top == bottom == 0:
         return x
@@ -569,14 +643,16 @@ def halo_rows(x: torch.Tensor, top: int, bottom: int,
 
 
 def gather_rows(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
-    """The whole tensor of every rank's slab along ``axis``, on every rank
-    (slabs of unequal heights padded to the largest for the all-gather,
-    then trimmed). Differentiable: a rank's slab gets the sum over the
-    ranks of their gradients of its rows, so a term that every rank
-    computes whole from it enters the ranks' losses as its ``share``."""
+    """The whole tensor of every rank's slab along ``axis`` (the next axis
+    holds the columns), on every rank (slabs of unequal heights, empty
+    ones too, padded to the largest for the all-gather, then trimmed).
+    Differentiable: a rank's slab gets the sum over the ranks of their
+    gradients of its rows, so a term that every rank computes whole from
+    it enters the ranks' losses as its ``share``."""
     if not active():
         return x
-    sizes = [size for _, size in slabs(x.shape[axis])]
+    axis %= x.ndim
+    sizes = [size for _, size in slabs(x.shape[axis], x.shape[axis + 1])]
     largest = max(sizes)
     if x.shape[axis] < largest:
         pad = list(x.shape)
@@ -591,8 +667,9 @@ def gather_rows(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
 
 def mean(x: torch.Tensor, dim=None, axis: int = -2) -> torch.Tensor:
     """This rank's share of the mean over ``dim`` (all axes by default) of
-    the whole tensor, whose rows lie along ``axis`` and images along axis
-    0: the sum of its rows or images over the global count. The shares of
+    the whole tensor, whose rows lie along ``axis`` (its columns along the
+    next) and images along axis 0: the sum of its rows or images over the
+    global count (0 on a rank with an empty slab). The shares of
     the ranks add up to the mean; outside a split it is ``x.mean(dim)``."""
     by_images = images_active()
     if not by_images and not active():
@@ -603,10 +680,12 @@ def mean(x: torch.Tensor, dim=None, axis: int = -2) -> torch.Tensor:
     if by_images and 0 not in dims:
         # each image whole: its own mean
         return x.mean(dim)
-    split, whole = (0, global_images) if by_images else (axis % x.ndim,
-                                                         global_rows)
-    total = math.prod(whole(x.shape[d]) if d == split else x.shape[d]
-                      for d in dims)
+    if by_images:
+        split, whole = 0, global_images(x.shape[0])
+    else:
+        split = axis % x.ndim
+        whole = global_rows(x.shape[split], x.shape[split + 1])
+    total = math.prod(whole if d == split else x.shape[d] for d in dims)
     summed = x.sum() if dim is None else x.sum(tuple(sorted(dims)))
     return summed / total
 
@@ -623,7 +702,7 @@ def _whole_shape(shape) -> tuple:
     """The whole tensor's shape of this rank's slab or images of it."""
     if images_active():
         return (global_images(shape[0]), *shape[1:])
-    return (*shape[:-2], global_rows(shape[-2]), shape[-1])
+    return (*shape[:-2], global_rows(shape[-2], shape[-1]), shape[-1])
 
 
 def _mine(x: torch.Tensor) -> torch.Tensor:
@@ -655,6 +734,17 @@ def noise_of(noise: Callable[[tuple], torch.Tensor]
 
 # ----------------------------------------------------------- the layers
 
+def on_empty(op, x: torch.Tensor, rows: int = 1) -> torch.Tensor:
+    """``op``, a layer's own call, on a rank whose slab ``x`` is empty
+    (where torch's kernels refuse 0 rows): ``op`` of ``rows`` rows of
+    zeros, as many as one output row needs, cut to none. The output has
+    the type (autocast's), channels and width of the ranks that hold
+    rows, and autograd links it to ``x`` and to the layer's parameters as
+    theirs, so every rank's tensors, and its forward and backward
+    exchanges, match."""
+    return op(F.pad(x, (0, 0, 0, rows)))[..., :0, :]
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that on a slab takes its row padding from the
     neighbouring slabs (zeros at the image's edges). A conv without row
@@ -662,16 +752,24 @@ class Conv2d(nn.Conv2d):
     input was padded before it (``ReflectionPad2d``)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pad_h = self.padding[0]
-        if not active() or pad_h == 0:
+        if not active():
             return super().forward(x)
-        if self.padding_mode != "zeros" or isinstance(self.padding, str):
+        pad_h = self.padding[0]
+        if pad_h and (self.padding_mode != "zeros"
+                      or isinstance(self.padding, str)):
             raise NotImplementedError("row-split convs pad with zeros")
         reach = self.dilation[0] * (self.kernel_size[0] - 1)
         bottom = max(0, reach - self.stride[0] - pad_h + 1)
-        out = F.conv2d(halo_rows(x, pad_h, bottom), self.weight, self.bias,
-                       self.stride, (0, self.padding[1]), self.dilation,
-                       self.groups)
+        ext = halo_rows(x, pad_h, bottom) if pad_h else x
+
+        def conv(rows):
+            return F.conv2d(rows, self.weight, self.bias, self.stride,
+                            (0, self.padding[1]), self.dilation, self.groups)
+        if not x.shape[-2]:
+            return on_empty(conv, ext, reach + 1)
+        if not pad_h:
+            return super().forward(x)
+        out = conv(ext)
         if out.shape[-2] * self.stride[0] != x.shape[-2]:
             raise ValueError(f"a slab of {x.shape[-2]} rows gives "
                              f"{out.shape[-2]} rows at stride "
@@ -689,8 +787,14 @@ class MaxPool2d(nn.MaxPool2d):
         # square windows, as the encoder's (int kernel, stride, padding)
         pad = self.padding
         bottom = max(0, self.kernel_size - self.stride - pad)
-        return F.max_pool2d(halo_rows(x, pad, bottom, "-inf"),
-                            self.kernel_size, self.stride, (0, pad))
+        ext = halo_rows(x, pad, bottom, "-inf")
+
+        def pool(rows):
+            return F.max_pool2d(rows, self.kernel_size, self.stride,
+                                (0, pad))
+        if not x.shape[-2]:
+            return on_empty(pool, ext, self.kernel_size)
+        return pool(ext)
 
 
 class ReflectionPad2d(nn.ReflectionPad2d):
@@ -701,8 +805,13 @@ class ReflectionPad2d(nn.ReflectionPad2d):
         if not active():
             return super().forward(x)
         left, right, top, bottom = self.padding
-        return halo_rows(F.pad(x, (left, right, 0, 0), mode="reflect"),
-                         top, bottom, "reflect")
+        # the rows first, at the level's width; a reflection pads rows and
+        # columns in either order alike
+        ext = halo_rows(x, top, bottom, "reflect")
+
+        def columns(rows):
+            return F.pad(rows, (left, right, 0, 0), mode="reflect")
+        return columns(ext) if x.shape[-2] else on_empty(columns, ext)
 
 
 # ------------------------------------------------------ the leader's batch

@@ -163,9 +163,9 @@ def build_eval_forward(cfg, thing_list, num_classes: int,
 
     @torch.no_grad()
     def eval_step(modules, batch, feats=None, sem_probs=None, depth=None):
-        height = (batch["frames"].shape[2] if "frames" in batch
-                  else batch["image"].shape[1])
-        with spatial.image(height):
+        size = (batch["frames"].shape[2:4] if "frames" in batch
+                else batch["image"].shape[1:3])
+        with spatial.image(*size):
             maps = predict(modules, batch, feats, sem_probs, depth)
             if not spatial.active():
                 return score(maps, batch)
@@ -296,7 +296,7 @@ def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
     rgb_tgt = maybe_normalize(mixup["rgb_tgt"], mean, std)
     rgb_src = maybe_normalize(mixup["rgb_src"], mean, std)
     semantic_src = mixup["semantic_src"].long()
-    with spatial.image(rgb_tgt.shape[1]):
+    with spatial.image(*rgb_tgt.shape[1:3]):
         sem_pred = spatial.gather_rows(teacher_labels(
             teacher, spatial.rows_of(rgb_tgt, axis=1)), axis=1)
     if geom_augment:
@@ -384,7 +384,10 @@ def _blend_ema(state: AdaptState, do_ema: bool) -> None:
 def _check_row_split(batch, by_images=()) -> None:
     """Raises ValueError, on every rank before any collective, where a
     height of a domain placed by rows (not in ``by_images``) does not
-    split into slabs of whole 32-row blocks."""
+    split into slabs of whole 32-row blocks: any multiple of 32 splits,
+    and with fewer blocks than ranks the last ranks' slabs are empty
+    (``spatial.slab_rows``); they run every collective of the step with
+    no rows of that domain, and their share of its losses is 0."""
     for domain in ("target", "source", "target_replay"):
         if domain in batch and domain not in by_images:
             spatial.check_height(batch[domain]["frames"].shape[2])
@@ -460,8 +463,9 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     and its share of every loss; the pose net runs whole on every rank;
     the gradients are summed over the ranks before Adam; the metrics are
     the global values on every rank; rank 0 alone gets the eval results
-    and stats (the others None). Every height must split into slabs of
-    whole 32-row blocks, at least one a rank (else ValueError). With a
+    and stats (the others None). Every height must be a multiple of 32
+    rows (else ValueError); with fewer 32-row blocks than ranks the last
+    ranks hold empty slabs of that domain. With a
     flow head the triplets' rows go through the encoder in one pass, and
     the pose net and the flow head run on the whole frames on every rank:
     the motion maps are whole everywhere, the photometric loss takes its
@@ -543,7 +547,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         net and the flow head; the transformations and the motion come
         back whole."""
         mine = [spatial.images_of(image) for image in images]
-        with spatial.image(images[0].shape[-2]):
+        with spatial.image(*images[0].shape[-2:]):
             if student.flow_head is not None:
                 feats_t, *feats_nb = encode_frames(
                     student.backbone_po_depth,
@@ -583,7 +587,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         a scale at the merged shape."""
         target_noise, replay_noise = _split_noise(noise, count,
                                                   images[0].shape[0])
-        with spatial.image(images[0].shape[-2]):
+        with spatial.image(*images[0].shape[-2:]):
             feats = student.backbone_po_depth(
                 spatial.rows_of(images[0][:count]))
             # the depth head on the target's rows, the pose net on all
@@ -614,7 +618,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
 
     def mixup_forward(state, mixup):
         """This rank's mixup samples through the student's encoder:
-        (features, semantic labels, height, groups), groups as
+        (features, semantic labels, (height, width), groups), groups as
         ``spatial.group_slices``. With ``fused_mixup`` the samples are
         composed here. Inside ``spatial.images()`` they are this rank's
         images, the teacher labelling each whole; by rows, this rank's
@@ -631,51 +635,51 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                 cut_cfg, geom_augment, mean, std)
         else:
             rgb, semantic = mixup["rgb"], mixup["semantic"]
-        height = rgb.shape[1]
-        with spatial.image(height):
+        size = tuple(rgb.shape[1:3])
+        with spatial.image(*size):
             rgb, semantic = (spatial.rows_of(x, axis=1)
                              for x in (rgb, semantic))
             feats = state.student.backbone_po_depth(
                 _nchw_images(rgb, mean, std))
-        return feats, semantic, height, groups
+        return feats, semantic, size, groups
 
     def semantic_losses(state, batch, source, source_feats, losses,
                         placed, by_images):
         """The source and mixup semantic losses into ``losses``, each
         domain under its placement (``placed(domain)``)."""
         student = state.student
-        source_height = batch["source"]["frames"].shape[2]
+        source_size = tuple(batch["source"]["frames"].shape[2:4])
         num_source = source_feats[0].shape[0]
         mix_feats = None
         if num_mixup > 0:
             with placed("mixup"):
-                mix_feats, mix_semantic, mix_height, groups = mixup_forward(
+                mix_feats, mix_semantic, mix_size, groups = mixup_forward(
                     state, batch["mixup"])
-        if mix_feats is not None and mix_height == source_height \
+        if mix_feats is not None and mix_size == source_size \
                 and ("mixup" in by_images) == ("source" in by_images) \
                 and mix_feats[0].shape[1:] == source_feats[0].shape[1:]:
             # One semantic-head pass over source and mixup: the head has
             # no normalization layer, so batching changes nothing.
-            with placed("source"), spatial.image(source_height):
+            with placed("source"), spatial.image(*source_size):
                 sem_cat = student.semantic_head(
                     [torch.cat([fs, fm]) for fs, fm in zip(source_feats,
                                                            mix_feats)])
             sem_src, sem_mix = sem_cat[:num_source], sem_cat[num_source:]
         else:
-            with placed("source"), spatial.image(source_height):
+            with placed("source"), spatial.image(*source_size):
                 sem_src = student.semantic_head(source_feats)
             sem_mix = None
             if mix_feats is not None:
-                with placed("mixup"), spatial.image(mix_height):
+                with placed("mixup"), spatial.image(*mix_size):
                     sem_mix = student.semantic_head(mix_feats)
-        with placed("source"), spatial.image(source_height):
+        with placed("source"), spatial.image(*source_size):
             losses["semantic_source"] = sem_loss(
                 sem_src, source["semantic"], source["semantic_weights"])
         if sem_mix is None:
             return
         # every rank runs each group's collectives, also one that holds
         # none of its samples
-        with placed("mixup"), spatial.image(mix_height):
+        with placed("mixup"), spatial.image(*mix_size):
             for strategy, count, part in groups:
                 if weights.get(f"semantic_{strategy}") is None:
                     continue
@@ -698,13 +702,13 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             return spatial.images() if domain in by_images \
                 else contextlib.nullcontext()
 
-        source_height = batch["source"]["frames"].shape[2]
-        target_height = batch["target"]["frames"].shape[2]
+        source_size = tuple(batch["source"]["frames"].shape[2:4])
+        target_size = tuple(batch["target"]["frames"].shape[2:4])
         with placed("source"):
             if "source" in by_images:
                 source = spatial.place_images(batch["source"])
             else:
-                with spatial.image(source_height):
+                with spatial.image(*source_size):
                     source = spatial.place_rows(batch["source"])
         source_images = _triplets(batch["source"]["frames"], mean, std)
         num_source = source_images[0].shape[0]
@@ -798,7 +802,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                 losses["flow_sparsity"] = sum(
                     d["flow"][1] * c for d, c in domains) / total_images
         else:
-            with spatial.image(target_height):
+            with spatial.image(*target_size):
                 target_feats = apply_encoder(
                     student.backbone_po_depth, maybe_normalize(
                         spatial.rows_of(batch["target"]["frames"][:, 0],
@@ -811,7 +815,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                 aux["eval_depth"] = target_depth.detach()
 
         # ---- source supervised panoptic
-        with placed("source"), spatial.image(source_height):
+        with placed("source"), spatial.image(*source_size):
             if source_feats is None:
                 source_feats = student.backbone_po_depth(spatial.rows_of(
                     spatial.images_of(source_images[0])))
@@ -819,7 +823,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             semantic_losses(state, batch, source, source_feats, losses,
                             placed, by_images)
         if student.instance_head is not None:
-            with placed("source"), spatial.image(source_height):
+            with placed("source"), spatial.image(*source_size):
                 center_src, offset_src, thing_mask_src = \
                     student.instance_head(source_feats)
                 losses["center_source"] = center_loss(_nhwc(center_src),
@@ -833,7 +837,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         if student.instance_head is not None \
                 and "instance_head" in state.ema_modules \
                 and batch["target"].get("center_ema") is not None:
-            with spatial.image(target_height):
+            with spatial.image(*target_size):
                 target_rows = spatial.place_rows(batch["target"])
                 center_t, offset_t, _ = student.instance_head(target_feats)
                 losses["center_ema"] = ema_consistency_loss(
@@ -849,7 +853,7 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
 
         # Replay-buffer features: the target frame's last-stage features,
         # mean-pooled and L2-normalized (adapt.py:756-765).
-        with spatial.image(target_height):
+        with spatial.image(*target_size):
             pooled = spatial.gather_rows(target_feats[-1].detach()).float() \
                 .mean(dim=(2, 3))
         aux["image_features"] = pooled / torch.clamp(

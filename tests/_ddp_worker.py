@@ -332,7 +332,8 @@ def scenario_jax(out):
 
 def scenario_parts_cuda(out):
     """``parts``' BatchNorm (float64, float32, bfloat16 input; also on
-    slabs of unequal heights) and top-k loss on this rank's rows with
+    slabs of unequal heights, and with rank 1's slab empty) and top-k loss
+    on this rank's rows with
     every rank on card 0 (the group's gloo carries CUDA tensors): the
     SyncBN kernels' path."""
     from codeps_torch import parallel
@@ -348,8 +349,24 @@ def scenario_parts_cuda(out):
             str(dtype): [t.cpu() for t in run_batch_norm(
                 x[..., slab, :].to(dtype), grad_out[..., slab, :].to(dtype))]
             for dtype in CUDA_BN_DTYPES},
+        "batch_norm_empty": batch_norm_empty_slab(x, grad_out),
         "semantic": [t.cpu() for t in run_semantic_loss(
             probs[rows], target[rows], weights[rows])]}
+
+
+def batch_norm_empty_slab(x, grad_out):
+    """``run_batch_norm`` on every row of ``x`` on rank 0 and on an empty
+    slab on the others, inside a row split of an image of one 32-row block
+    (``spatial.slab_rows``: the other ranks' slabs are empty), for each of
+    CUDA_BN_DTYPES."""
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    rows = x.shape[-2]
+    mine = slice(0, rows) if parallel.rank() == 0 else slice(rows, rows)
+    with spatial.rows(), spatial.image(32, x.shape[-1]):
+        return {str(dtype): [t.cpu() for t in run_batch_norm(
+            x[..., mine, :].to(dtype), grad_out[..., mine, :].to(dtype))]
+            for dtype in CUDA_BN_DTYPES}
 
 
 def free_port():

@@ -35,6 +35,20 @@ HALO_CASES = ((1, 1, "zeros"), (3, 2, "zeros"), (1, 0, "-inf"),
               (1, 1, "reflect"), (2, 1, "replicate"), (0, 1, "zeros"))
 # uneven slabs: 96 rows split 2 + 1 blocks over 2 ranks
 UNEVEN_H = 96
+# empty slabs: 32 rows, one block, on 2 ranks: rank 1 holds no row at any
+# level (``tests/test_torch_spatial_empty.py``)
+EMPTY_H = 32
+# every edge mode with halos of 0-3 rows, at each level (strides 1 to 32)
+# where one process pads the whole tensor so (a reflection needs more
+# rows than it reflects)
+EMPTY_HALO_SIZES = tuple(
+    (EMPTY_H, EMPTY_H >> s, tuple(
+        (top, bottom, edge) for top, bottom, edge in HALO_CASES + (
+            (3, 3, "reflect"), (0, 3, "replicate"), (1, 1, "replicate"),
+            (2, 0, "-inf"))
+        if max(top, bottom) <= EMPTY_H >> s
+        and (edge != "reflect" or max(top, bottom) < EMPTY_H >> s)))
+    for s in range(6))
 # (image height, rows of the tensor, cases): at stride 32 of 96 rows the
 # slabs are 2 + 1 rows, and a reflection at the image's bottom edge
 # reaches into rank 0's rows
@@ -50,10 +64,22 @@ TIMEOUT = 900
 
 
 def relative(ours, ref) -> float:
-    """max |ours - ref| / max |ref| (0 for equal tensors)."""
+    """max |ours - ref| / max |ref| (0 for equal tensors, empty ones
+    too)."""
     ours, ref = ours.detach().double(), ref.detach().double()
+    if ours.shape != ref.shape:
+        raise ValueError(f"shapes {tuple(ours.shape)} and {tuple(ref.shape)}")
+    if not ref.numel():
+        return 0.0
     err = float((ours - ref).abs().max())
     return err / max(float(ref.abs().max()), 1e-300) if err else 0.0
+
+
+def _max_diff(ours, ref) -> float:
+    """max |ours - ref| (0 for empty tensors of one shape)."""
+    if ours.shape != ref.shape:
+        raise ValueError(f"shapes {tuple(ours.shape)} and {tuple(ref.shape)}")
+    return float((ours - ref).abs().max()) if ref.numel() else 0.0
 
 
 def relative_l2(ours, ref) -> float:
@@ -79,19 +105,21 @@ def step_config(compute_dtype="float32"):
 
 def step_batch(seed, dtype=np.float64, fused=False, height=H,
                num_source=NUM_SOURCE, num_replay=NUM_REPLAY, groups=None,
-               source_height=None):
-    """An adaptation batch at ``height`` x W (the source and the mixup at
-    ``source_height``, by default ``height``); float frames are taken as
+               source_height=None, width=W, source_width=None):
+    """An adaptation batch at ``height`` x ``width`` (the source and the
+    mixup at ``source_height`` x ``source_width``, by default the
+    target's); float frames are taken as
     normalized. ``fused`` gives the raw materials of NUM_MIXUP mixups with
     the camera warp in place of composed samples: cut mixups, or the
     (strategy, count) ``groups`` of cut and class mixups in that order."""
     from codeps_torch.tasks.mixup_prep import c2c_prewarp
     rng = np.random.default_rng(seed)
     target_height, height = height, source_height or height
+    target_width, width = width, source_width or width
 
-    def cams(n, f, rows=height):
-        return np.tile(np.asarray([[f, f, W / 2, rows / 2]], np.float32),
-                       (n, 1))
+    def cams(n, f, rows=height, columns=width):
+        return np.tile(np.asarray([[f, f, columns / 2, rows / 2]],
+                                  np.float32), (n, 1))
 
     def images(*shape):
         if dtype == np.uint8:
@@ -99,39 +127,41 @@ def step_batch(seed, dtype=np.float64, fused=False, height=H,
         return rng.normal(0, 1, (*shape, 3)).astype(dtype)
 
     batch = {
-        "target": {"frames": images(1, 3, target_height, W),
-                   "camera": cams(1, 30.0, target_height)},
+        "target": {"frames": images(1, 3, target_height, target_width),
+                   "camera": cams(1, 30.0, target_height, target_width)},
         "source": {
-            "frames": images(num_source, 3, height, W),
+            "frames": images(num_source, 3, height, width),
             "camera": cams(num_source, 28.0),
-            "semantic": rng.integers(0, NC, (num_source, height, W)).astype(
-                np.int32),
+            "semantic": rng.integers(
+                0, NC, (num_source, height, width)).astype(np.int32),
             "semantic_weights": rng.uniform(
-                0.5, 2.0, (num_source, height, W)).astype(np.float32),
-            "center": rng.uniform(0, 1, (num_source, height, W, 1)).astype(
-                np.float32),
-            "offset": rng.normal(0, 4, (num_source, height, W, 2)).astype(
-                np.float32)},
-        "target_replay": {"frames": images(num_replay, 3, target_height, W),
-                          "camera": cams(num_replay, 30.0, target_height)},
+                0.5, 2.0, (num_source, height, width)).astype(np.float32),
+            "center": rng.uniform(
+                0, 1, (num_source, height, width, 1)).astype(np.float32),
+            "offset": rng.normal(
+                0, 4, (num_source, height, width, 2)).astype(np.float32)},
+        "target_replay": {
+            "frames": images(num_replay, 3, target_height, target_width),
+            "camera": cams(num_replay, 30.0, target_height, target_width)},
         "eval_gt": {
-            "semantic": rng.integers(0, NC, (1, target_height, W)).astype(
-                np.int32),
+            "semantic": rng.integers(
+                0, NC, (1, target_height, target_width)).astype(np.int32),
             "depth_gt": np.where(
-                rng.random((1, target_height, W)) < 0.2, 0.0,
-                rng.uniform(1, 60, (1, target_height, W))).astype(
+                rng.random((1, target_height, target_width)) < 0.2, 0.0,
+                rng.uniform(1, 60, (1, target_height, target_width))).astype(
                     np.float32)},
     }
     if fused:
         counts = dict(groups or (("cut_mixup", NUM_MIXUP),))
         batch["mixup"] = {
-            "rgb_src": images(NUM_MIXUP, height, W),
-            "semantic_src": rng.integers(0, NC, (NUM_MIXUP, height, W))
+            "rgb_src": images(NUM_MIXUP, height, width),
+            "semantic_src": rng.integers(0, NC, (NUM_MIXUP, height, width))
             .astype(np.int32),
-            "rgb_tgt": images(NUM_MIXUP, target_height, W),
-            "prewarp": c2c_prewarp(cams(NUM_MIXUP, 30.0, target_height),
-                                   cams(NUM_MIXUP, 24.0),
-                                   (target_height, W), (height, W)),
+            "rgb_tgt": images(NUM_MIXUP, target_height, target_width),
+            "prewarp": c2c_prewarp(
+                cams(NUM_MIXUP, 30.0, target_height, target_width),
+                cams(NUM_MIXUP, 24.0), (target_height, target_width),
+                (height, width)),
             "cut_cells": np.stack([rng.choice(8, 2, replace=False)
                                    for _ in range(counts.get(
                                        "cut_mixup", 0))]).astype(np.int32)}
@@ -140,8 +170,8 @@ def step_batch(seed, dtype=np.float64, fused=False, height=H,
                 (counts["class_mixup"], 256)) < 0.5
     else:
         batch["mixup"] = {
-            "rgb": images(NUM_MIXUP, height, W),
-            "semantic": rng.integers(0, NC, (NUM_MIXUP, height, W)).astype(
+            "rgb": images(NUM_MIXUP, height, width),
+            "semantic": rng.integers(0, NC, (NUM_MIXUP, height, width)).astype(
                 np.int32)}
     return batch
 
@@ -202,27 +232,33 @@ def _slab(image_height, rows, rank, ranks):
                  (first + size) * rows // image_height)
 
 
-def check_halo(out):
-    """``halo_rows`` and ``gather_rows``, forward and backward, against
-    the padding and concatenation of the whole tensor in one process, in
-    float64, on even slabs (64 rows) and on the uneven slabs of 96 rows
-    at strides 32 and 16: every rank's output and input gradient, with
-    the loss of rank r its output times the weights ``weights[r]``."""
+def _halo_checks(sizes):
+    """``halo_rows`` and ``gather_rows`` on the (image height, rows of the
+    tensor, cases) of ``sizes`` against the padding and concatenation of
+    the whole tensor in one process, forward and backward, float64: every
+    rank's output (its row count too: none on an empty slab) and input
+    gradient, with the loss of rank r its output times the weights
+    ``weights[r]``."""
     import torch.nn.functional as F
     from codeps_torch import parallel
     from codeps_torch.parallel import spatial
     ranks, rank = parallel.world_size(), parallel.rank()
     g = torch.Generator().manual_seed(5)
     result = {}
-    for image_height, rows, cases in HALO_SIZES:
+    for image_height, rows, cases in sizes:
         x = torch.randn(2, 3, rows, 5, generator=g, dtype=torch.float64)
+        # the image's width, of which 5 columns are the tensor's level
+        width = 5 * image_height // rows
         slabs = [_slab(image_height, rows, r, ranks) for r in range(ranks)]
         mine_rows = slabs[rank]
         for top, bottom, edge in cases:
-            weights = [torch.randn(2, 3, sl.stop - sl.start + top + bottom,
-                                   5, generator=g, dtype=torch.float64)
-                       for sl in slabs]
-            with spatial.rows(), spatial.image(image_height):
+            # an empty slab gets no halo
+            extra = [top + bottom if sl.stop > sl.start else 0
+                     for sl in slabs]
+            weights = [torch.randn(2, 3, sl.stop - sl.start + e, 5,
+                                   generator=g, dtype=torch.float64)
+                       for sl, e in zip(slabs, extra)]
+            with spatial.rows(), spatial.image(image_height, width):
                 mine = spatial.rows_of(x).clone().requires_grad_(True)
                 got = spatial.halo_rows(mine, top, bottom, edge)
                 finite = torch.where(torch.isfinite(got), got, 0.0)
@@ -234,41 +270,48 @@ def check_halo(out):
                 if mode == "constant" else F.pad(whole, (0, 0, top, bottom),
                                                  mode=mode)
             loss = 0.0
-            for sl, w in zip(slabs, weights):
-                part = padded[..., sl.start:sl.stop + top + bottom, :]
+            for sl, e, w in zip(slabs, extra, weights):
+                part = padded[..., sl.start:sl.stop + e, :]
                 loss = loss + (torch.where(torch.isfinite(part), part, 0.0)
                                * w).sum()
             loss.backward()
-            expect = padded[..., mine_rows.start:mine_rows.stop + top
-                            + bottom, :]
+            expect = padded[..., mine_rows.start:mine_rows.stop
+                            + extra[rank], :]
             result[f"halo {rows}/{image_height} {top} {bottom} {edge}"] = {
-                "out": float((torch.where(torch.isfinite(got), got, 0.0)
-                              - torch.where(torch.isfinite(expect), expect,
-                                            0.0)).abs().max()),
+                "out": _max_diff(torch.where(torch.isfinite(got), got, 0.0),
+                                 torch.where(torch.isfinite(expect), expect,
+                                             0.0)),
+                "rows": (got.shape[-2], expect.shape[-2]),
                 "inf_equal": bool(torch.equal(torch.isinf(got),
                                               torch.isinf(expect))),
                 "grad": relative(mine.grad, whole.grad[..., mine_rows, :])}
         weights = torch.randn(ranks, *x.shape, generator=g,
                               dtype=torch.float64)
-        with spatial.rows(), spatial.image(image_height):
+        with spatial.rows(), spatial.image(image_height, width):
             mine = spatial.rows_of(x).clone().requires_grad_(True)
             got = spatial.gather_rows(mine)
             (got * weights[rank]).sum().backward()
         result[f"gather {rows}/{image_height}"] = {
             "out": float((got - x).abs().max()),
             "grad": relative(mine.grad, weights.sum(0)[..., mine_rows, :])}
-    out["halo"] = result
+    return result
+
+
+def check_halo(out):
+    """``_halo_checks`` on even slabs (64 rows) and on the uneven slabs of
+    96 rows at strides 32 and 16."""
+    out["halo"] = _halo_checks(HALO_SIZES)
 
 
 def _compare_forward(fn, inputs, params, rows_axes, out_axes,
-                     height=H):
+                     height=H, width=W):
     """``fn(*inputs)`` on this rank's rows (inputs cut along
     ``rows_axes``, None for a whole input) against one process: the
     relative distance of each output (gathered along ``out_axes``, None
     for a value that is a share) and of the gradient of a seeded
     weighted sum of the outputs by the inputs and by ``params``
     (summed over the ranks). The slabs are those of an image of
-    ``height`` rows."""
+    ``height`` x ``width`` pixels."""
     from codeps_torch import parallel
     from codeps_torch.parallel import spatial
     g = torch.Generator().manual_seed(11)
@@ -283,7 +326,7 @@ def _compare_forward(fn, inputs, params, rows_axes, out_axes,
         ref_in_grad = [x.grad for x in ref_in]
         for p in params:
             p.grad = None
-    with spatial.rows(), spatial.image(height):
+    with spatial.rows(), spatial.image(height, width):
         mine = [(x if axis is None else spatial.rows_of(x, axis))
                 .clone().requires_grad_(x.is_floating_point())
                 for x, axis in zip(inputs, rows_axes)]
@@ -329,25 +372,32 @@ def _local(rows):
     return slab.stop - slab.start
 
 
-def _resizes_and_warp(result, height, g):
+def _resizes_and_warp(result, height, g, levels=False):
     """The bilinear and nearest resizes and the warp on the slabs of an
-    image of ``height`` rows, against one process."""
+    image of ``height`` x W pixels, against one process. With ``levels``
+    every size is a level of the image's pyramid (both axes halved
+    together): a split with empty slabs reads a tensor's level from its
+    width."""
     from codeps_torch.geometry.warp import warp_image
     from codeps_torch.ops.resize import (resize_bilinear_nchw,
                                          resize_nearest_nchw)
-    small = torch.randn(2, 4, height // 2, 24, generator=g,
-                        dtype=torch.float64)
+    small = torch.randn(2, 4, height // 2, W // 2 if levels else 24,
+                        generator=g, dtype=torch.float64)
     tag = "" if height == H else f" {height} rows"
-    for size, align in (((height, 48), True), ((height, 48), False),
-                        ((height // 4, 12), False),
-                        ((height // 2, 40), True)):
+    sizes = ((((height, W), True), ((height, W), False),
+              ((height // 4, W // 4), False), ((height // 8, W // 8), True))
+             if levels else
+             (((height, 48), True), ((height, 48), False),
+              ((height // 4, 12), False), ((height // 2, 40), True)))
+    for size, align in sizes:
         # a row split's output size is its slab's
         result[f"resize {size} {align}{tag}"] = _compare_forward(
             lambda x, s=size, a=align: [resize_bilinear_nchw(
                 x, (_local(s[0]), s[1]), a)],
             [small], [], [-2], [-2], height)
+    nearest = (height // 8, W // 8 if levels else 10)
     result[f"resize nearest{tag}"] = _compare_forward(
-        lambda x: [resize_nearest_nchw(x, (_local(height // 8), 10))],
+        lambda x: [resize_nearest_nchw(x, (_local(nearest[0]), nearest[1]))],
         [small], [], [-2], [-2], height)
     camera = torch.tensor([[30.0, 30.0, W / 2, height / 2]] * 2,
                           dtype=torch.float64)
@@ -360,9 +410,11 @@ def _resizes_and_warp(result, height, g):
         [-2], [-2], height)
 
 
-def check_modules(out):
-    """Each ported module and loss on 2 ranks against one process, in
-    float64 (the losses' float32 parts as they are)."""
+def _modules(height, resize_heights, levels=False):
+    """Each ported module and loss on the slabs of an image of ``height``
+    x W pixels against one process, in float64 (the losses' float32 parts
+    as they are); the resizes and the warp at each of ``resize_heights``
+    (``_resizes_and_warp``)."""
     from codeps_torch.losses import (binary_mask_loss, center_loss,
                                      edge_aware_smoothness_loss, offset_loss,
                                      reconstruction_loss, semantic_loss)
@@ -371,7 +423,7 @@ def check_modules(out):
     from codeps_torch.models.resnet import keep_running_stats, make_encoder
     torch.manual_seed(0)
     g = torch.Generator().manual_seed(1)
-    image = torch.randn(2, 3, H, W, generator=g, dtype=torch.float64)
+    image = torch.randn(2, 3, height, W, generator=g, dtype=torch.float64)
     result = {}
     for layers in (18, 50):
         for train in (False, True):
@@ -379,7 +431,7 @@ def check_modules(out):
             keep_running_stats(encoder)
             result[f"encoder{layers} train={train}"] = _compare_forward(
                 encoder, [image], list(encoder.parameters()), [-2],
-                [-2] * 5)
+                [-2] * 5, height)
     encoder = make_encoder(18).double().eval()
     with torch.no_grad():
         feats = [f.detach() for f in encoder(image)]
@@ -399,18 +451,17 @@ def check_modules(out):
     for name, (module, call) in heads.items():
         result[name] = _compare_forward(
             lambda *f, m=module, c=call: c(m, *f), feats,
-            list(module.parameters()), [-2] * 5, [-2] * 3)
-    for height in (H, UNEVEN_H):
-        # the resizes and the warp on even slabs and on 2 + 1 blocks
-        _resizes_and_warp(result, height, g)
-    camera = torch.tensor([[30.0, 30.0, W / 2, H / 2]] * 2,
+            list(module.parameters()), [-2] * 5, [-2] * 3, height)
+    for rows in resize_heights:
+        _resizes_and_warp(result, rows, g, levels)
+    camera = torch.tensor([[30.0, 30.0, W / 2, height / 2]] * 2,
                           dtype=torch.float64)
     pose = _pose()
-    depth = 1.0 + 20 * torch.rand(2, 1, H, W, generator=g,
+    depth = 1.0 + 20 * torch.rand(2, 1, height, W, generator=g,
                                   dtype=torch.float64)
-    neighbours = [torch.randn(2, 3, H, W, generator=g, dtype=torch.float64)
-                  for _ in range(2)]
-    noise = [torch.randn(2, 2, H >> s, W >> s, generator=g)
+    neighbours = [torch.randn(2, 3, height, W, generator=g,
+                              dtype=torch.float64) for _ in range(2)]
+    noise = [torch.randn(2, 2, height >> s, W >> s, generator=g)
              for s in range(5)]
 
     def recon(d, *images):
@@ -421,27 +472,34 @@ def check_modules(out):
                                     dtype=torch.float64)]
     result["reconstruction loss"] = _compare_forward(
         recon, [depth, image, *neighbours], [], [-2, None, None, None],
-        [None])
+        [None], height)
     result["smoothness loss"] = _compare_forward(
         lambda d, i: [edge_aware_smoothness_loss(i, d)], [depth, image], [],
-        [-2, None], [None])
-    probs = torch.softmax(torch.randn(2, NC, H, W, generator=g,
+        [-2, None], [None], height)
+    probs = torch.softmax(torch.randn(2, NC, height, W, generator=g,
                                       dtype=torch.float64), dim=1)
-    labels = torch.randint(0, NC, (2, H, W), generator=g)
-    pixel_weights = torch.rand(2, H, W, generator=g, dtype=torch.float64)
+    labels = torch.randint(0, NC, (2, height, W), generator=g)
+    pixel_weights = torch.rand(2, height, W, generator=g,
+                               dtype=torch.float64)
     result["semantic loss top-k"] = _compare_forward(
         lambda p, t, w: [semantic_loss(p, t, w, top_k_percent_pixels=0.2,
                                        dtype=torch.float64)],
-        [probs, labels, pixel_weights], [], [-2, -2, -2], [None])
-    center = torch.rand(2, H, W, 1, generator=g, dtype=torch.float64)
-    offset = torch.randn(2, H, W, 2, generator=g, dtype=torch.float64)
-    thing = torch.randint(0, 2, (2, H, W), generator=g)
+        [probs, labels, pixel_weights], [], [-2, -2, -2], [None], height)
+    center = torch.rand(2, height, W, 1, generator=g, dtype=torch.float64)
+    offset = torch.randn(2, height, W, 2, generator=g, dtype=torch.float64)
+    thing = torch.randint(0, 2, (2, height, W), generator=g)
     result["instance losses"] = _compare_forward(
         lambda c, o, pc, po, m, t: [center_loss(pc, c), offset_loss(po, o),
                                     binary_mask_loss(m, t)],
         [center, offset, center.flip(1), offset.flip(2), probs[:, :2], thing],
-        [], [1, 1, 1, 1, -2, -2], [None] * 3)
-    out["modules"] = result
+        [], [1, 1, 1, 1, -2, -2], [None] * 3, height)
+    return result
+
+
+def check_modules(out):
+    """``_modules`` at 64 rows, the resizes and the warp also on the
+    uneven slabs of 96 rows (2 + 1 blocks)."""
+    out["modules"] = _modules(H, (H, UNEVEN_H))
 
 
 def _step_distances(ours, ref):
@@ -551,7 +609,7 @@ def check_hybrid_step(out):
     process (rank 0, ``replicated()``) for each of HYBRID_VARIANTS, one
     step each, with each domain's placement; then the raise of a source
     of 32 rows whose 3 samples do not split over the ranks, which falls
-    back to rows."""
+    back to rows (rank 1's slab empty) and steps."""
     from codeps_torch import parallel
     from codeps_torch.parallel import spatial
     result = {}
@@ -590,19 +648,24 @@ def check_hybrid_step(out):
     out["hybrid"] = result
 
 
+def _wait_for(path):
+    """Waits for the test to write ``path`` (while the other checks run)."""
+    import time
+    waited = 0.0
+    while not path.exists():
+        if waited > TIMEOUT:
+            raise TimeoutError(f"no {path}")
+        time.sleep(0.5)
+        waited += 0.5
+
+
 def check_jax_step(out, inputs_path):
     """The float32 step from the JAX package's weights and batch with its
     global noise, on this rank's rows: rank 0's metrics, gradients,
     features, eval results and stats for the test to hold against JAX,
     and those of the one-process step (the control). The test writes the
     inputs while the other checks run."""
-    import time
-    waited = 0.0
-    while not inputs_path.exists():
-        if waited > TIMEOUT:
-            raise TimeoutError(f"no {inputs_path}")
-        time.sleep(0.5)
-        waited += 0.5
+    _wait_for(inputs_path)
     from codeps_torch import parallel
     from codeps_torch.models import build_modules
     from codeps_torch.parallel import spatial
@@ -644,6 +707,147 @@ def check_jax_step(out, inputs_path):
             out["jax"]["one_process"] = run_steps(
                 start, step, [inputs["batch"]], FROZEN, noise=noise)[0][0]
     parallel.barrier()
+
+
+def check_empty_jax_step(out, inputs_path):
+    """The float32 step from the JAX package's weights, batch and noise in
+    ``tests/test_torch_adapt.py``'s setup (its first batch: the target
+    and 2 replay frames at 32x64, the source and mixup at 32x96) on this
+    rank's rows, rank 1's slabs empty: rank 0's metrics, gradients,
+    features, eval results and stats for the test to hold against JAX."""
+    _wait_for(inputs_path)
+    from codeps_torch import parallel
+    from codeps_torch.models import build_modules
+    from codeps_torch.parallel import spatial
+    from codeps_torch.tasks.adapt import build_eval_forward, make_adapt_step
+    inputs = torch.load(inputs_path, weights_only=False)
+    cfg = step_config()
+    modules = build_modules(cfg, NC, device="cpu")
+    for name, sd in inputs["state_dicts"].items():
+        getattr(modules, name).load_state_dict(sd, strict=True)
+    step = make_adapt_step(cfg, [1.0] * NC, has_replay=True,
+                           num_mixup=NUM_MIXUP,
+                           eval_forward=build_eval_forward(cfg, THINGS, NC))
+    draws = list(inputs["noise"])
+
+    def noise(shape):
+        draw = torch.from_numpy(np.array(draws.pop(0)))
+        assert tuple(draw.shape) == tuple(shape), (draw.shape, shape)
+        return draw
+    with spatial.rows():
+        steps, _ = run_steps(modules, step, [inputs["batch"]], FROZEN,
+                             noise=noise)
+    out["empty_jax"] = steps[0] if parallel.rank() == 0 else {
+        "metrics": steps[0]["metrics"]}
+    parallel.barrier()
+
+
+# the float64 step on empty slabs (EMPTY_H target and source rows, rank 1
+# holds none): (name, placement, fused mixup, frozen modules, scene flow).
+# The hybrid placement puts the 2 source and 2 mixup samples by images and
+# the one replay sample, with the target, by rows
+EMPTY_STEP_VARIANTS = (
+    ("published", "rows", True, FROZEN, False),
+    ("live encoder", "rows", False, ("instance_head",), False),
+    ("flow", "rows", False, ("instance_head",), True),
+    ("hybrid", "hybrid", True, FROZEN, False))
+
+
+def _recorded_reductions():
+    """Wraps ``parallel.dist._reduce_gradients`` so that each call records
+    the size of the vector it all-reduces (the parameters that require a
+    gradient and a flag each) and how many of them this rank holds no
+    gradient for; returns (the records, a function that restores it)."""
+    from codeps_torch.parallel import dist as pdist
+    saved, records = pdist._reduce_gradients, []
+
+    def record(parameters, average):
+        params = [p for p in parameters if p.requires_grad]
+        records.append({
+            "layout": sum(p.numel() for p in params) + len(params),
+            "missing": sum(p.grad is None for p in params)})
+        return saved(params, average)
+    pdist._reduce_gradients = record
+
+    def restore():
+        pdist._reduce_gradients = saved
+    return records, restore
+
+
+def check_empty_layout(out):
+    """A row-split conv on the slabs of EMPTY_H rows, its output scaled by
+    a parameter only where a rank holds rows (rank 1's empty slab reaches
+    no output of it), and a third parameter no rank reaches:
+    ``sum_gradients`` must all-reduce one layout on every rank and give
+    every rank the one-process gradients, the unreached parameter none."""
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 3, EMPTY_H, 8, generator=g, dtype=torch.float64)
+    weights = torch.randn(2, 4, EMPTY_H, 8, generator=g, dtype=torch.float64)
+    torch.manual_seed(9)
+    conv = spatial.Conv2d(3, 4, 3, padding=1).double()
+    scale = torch.nn.Parameter(torch.rand(4, 1, 1, generator=g,
+                                          dtype=torch.float64))
+    unused = torch.nn.Parameter(torch.zeros(3, dtype=torch.float64))
+    params = [conv.weight, conv.bias, scale, unused]
+    with parallel.replicated():
+        (conv(x) * scale * weights).sum().backward()
+    ref = [p.grad.clone() for p in params[:3]]
+    for p in params:
+        p.grad = None
+    records, restore = _recorded_reductions()
+    try:
+        with spatial.rows(), spatial.image(EMPTY_H, 8):
+            mine = conv(spatial.rows_of(x))
+            if mine.shape[-2]:
+                mine = mine * scale
+            (mine * spatial.rows_of(weights)).sum().backward()
+            parallel.sum_gradients(params)
+    finally:
+        restore()
+    out["empty"]["layout"] = {
+        "records": records,
+        "grads": [relative(p.grad, r) for p, r in zip(params, ref)],
+        "unused_grad": unused.grad is None}
+
+
+def check_empty(out):
+    """Rank 1 holds empty slabs (EMPTY_H rows on 2 ranks): ``halo_rows``
+    and ``gather_rows`` at strides 1 to 32, the modules and losses at
+    EMPTY_H x W, the float64 step of each of EMPTY_STEP_VARIANTS against
+    one process (rank 0, ``replicated()``) with its gradient all-reduce's
+    layout recorded, and ``check_empty_layout``."""
+    from codeps_torch import parallel
+    from codeps_torch.parallel import spatial
+    out["empty"] = {"halo": _halo_checks(EMPTY_HALO_SIZES),
+                    "modules": _modules(EMPTY_H, (EMPTY_H,), levels=True),
+                    "step": {}}
+    for name, placement, fused, frozen, flow in EMPTY_STEP_VARIANTS:
+        cfg = step_config()
+        cfg.model.make_sflow = flow
+        modules, step = build_step(cfg, fused=fused)
+        modules = modules.double()
+        start = copy.deepcopy(modules)
+        batches = [step_batch(80, fused=fused, height=EMPTY_H)]
+        records, restore = _recorded_reductions()
+        try:
+            with (spatial.rows() if placement == "rows"
+                  else spatial.hybrid()):
+                ours = run_steps(modules, step, batches, frozen)
+        finally:
+            restore()
+        result = {"metrics": ours[0][0]["metrics"], "records": records,
+                  "placement": spatial.hybrid_placement(
+                      batches[0], parallel.world_size()),
+                  "eval_on_followers": ours[0][0]["results"] is None}
+        if parallel.rank() == 0:
+            with parallel.replicated():
+                ref = run_steps(start, step, batches, frozen)
+            result.update(_step_distances(ours, ref))
+        parallel.barrier()
+        out["empty"]["step"][name] = result
+    check_empty_layout(out)
 
 
 def runner_config(root, spatial_shard, flow=False):
@@ -724,9 +928,10 @@ def check_runner(out):
 
 
 def check_raises(out):
-    """Heights that do not split into whole 32-row blocks, at least one a
-    rank, raise ValueError on every rank before any collective; 96 rows
-    (2 + 1 blocks) and the flow head under spatial sharding do not."""
+    """Heights that are not whole 32-row blocks raise ValueError on every
+    rank before any collective; 32 rows (one block: rank 1's slab empty),
+    96 rows (2 + 1 blocks) and the flow head under spatial sharding do
+    not."""
     from codeps_torch.parallel import spatial
     from codeps_torch.tasks.state import make_adapt_state
     result = {}
@@ -764,9 +969,11 @@ def main(argv):
     with parallel.process_group("cpu"):
         out = {"root": str(out_dir)}
         for check in (check_halo, check_modules, check_step,
-                      check_hybrid_step, check_runner, check_raises):
+                      check_hybrid_step, check_runner, check_raises,
+                      check_empty):
             check(out)
         check_jax_step(out, out_dir / "jax_inputs.pt")
+        check_empty_jax_step(out, out_dir / "jax_inputs_empty.pt")
         torch.save(out, out_dir / f"spatial_{parallel.rank()}.pt")
         parallel.barrier()
 

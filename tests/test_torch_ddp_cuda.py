@@ -6,7 +6,9 @@ runs torch's SyncBN kernels (``models/resnet._GlobalBatchNormCuda``),
 which have no CPU version, and the one process cuDNN's:
 
   - BatchNorm over 2 ranks x 2 rows, and over slabs of 3 + 2 of the 5
-    image rows (a row split's uneven slabs), against one process on all:
+    image rows (a row split's uneven slabs), and with rank 0 holding all 5
+    rows and rank 1 an empty slab (fewer 32-row blocks than ranks), against
+    one process on all:
     output, input gradient and running statistics within 1e-12 in
     float64, 1e-5 in float32, and within two bfloat16 steps of the
     largest value for a bfloat16 input with float32 parameters (as under
@@ -66,6 +68,29 @@ def test_batch_norm_cuda_matches_one_process(parts_cuda, dtype):
             tol = TOLERANCE.get(dtype) or 2 * 2.0 ** -7 * float(
                 ref.abs().max())
             assert _max_diff(ours, ref) <= tol
+        assert _max_diff(r_mean, mean) <= STAT_TOLERANCE[dtype]
+        assert _max_diff(r_var, var) <= STAT_TOLERANCE[dtype]
+
+
+@pytest.mark.parametrize("dtype", worker.CUDA_BN_DTYPES, ids=str)
+def test_batch_norm_cuda_with_an_empty_slab_matches_one_process(parts_cuda,
+                                                               dtype):
+    # a row split of one 32-row block: rank 0 holds every row, rank 1's
+    # slab is empty and still joins the exchanges, forward and backward
+    x, grad_out, *_ = worker.parts_inputs()
+    out, grad, mean, var = (t.cpu() for t in worker.run_batch_norm(
+        x.cuda().to(dtype), grad_out.cuda().to(dtype)))
+    for rank, result in enumerate(parts_cuda):
+        r_out, r_grad, r_mean, r_var = result["batch_norm_empty"][
+            str(dtype)]
+        assert r_out.dtype == r_grad.dtype == dtype
+        if rank:
+            assert r_out.shape[-2] == r_grad.shape[-2] == 0
+        else:
+            for ours, ref in ((r_out, out), (r_grad, grad)):
+                tol = TOLERANCE.get(dtype) or 2 * 2.0 ** -7 * float(
+                    ref.abs().max())
+                assert _max_diff(ours, ref) <= tol
         assert _max_diff(r_mean, mean) <= STAT_TOLERANCE[dtype]
         assert _max_diff(r_var, var) <= STAT_TOLERANCE[dtype]
 

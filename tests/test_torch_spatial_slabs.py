@@ -1,7 +1,8 @@
 """The row split's table of slabs (``codeps_torch.parallel.spatial.
 slab_rows``), a pure function of (height, ranks, rank): a height's blocks
 of 32 rows dealt out over the ranks as evenly as whole blocks allow, the
-larger slabs first. No process group, no JAX."""
+larger slabs first; with fewer blocks than ranks the last ranks' slabs
+are empty. No process group, no JAX."""
 
 import pytest
 
@@ -46,10 +47,25 @@ def test_published_heights():
     assert _table(384, 1) == [(0, 384)]
 
 
-@pytest.mark.parametrize("height, ranks", [(80, 2), (32, 2), (384, 13),
-                                           (100, 1)])
+@pytest.mark.parametrize("height, ranks", [(32, 2), (32, 8), (96, 4),
+                                           (384, 13), (384, 16)])
+def test_fewer_blocks_than_ranks_leave_the_last_slabs_empty(height, ranks):
+    table = _table(height, ranks)
+    blocks = height // BLOCK
+    # one block for each of the first ranks, an empty slab at the image's
+    # bottom for the rest
+    assert table[:blocks] == [(r * BLOCK, BLOCK) for r in range(blocks)]
+    assert table[blocks:] == [(height, 0)] * (ranks - blocks)
+    # in order, each slab starting where the last ended, to the bottom row
+    assert table[0][0] == 0
+    for (first, size), (next_first, _) in zip(table, table[1:]):
+        assert first + size == next_first
+    assert sum(size for _, size in table) == height
+
+
+@pytest.mark.parametrize("height, ranks", [(80, 2), (100, 1)])
 def test_refused_heights_name_height_and_ranks(height, ranks):
-    # not a multiple of 32 rows, or fewer blocks than ranks
+    # not a multiple of 32 rows
     with pytest.raises(ValueError, match=f"{height} rows does not split "
                                          f"over {ranks} ranks"):
         spatial.slab_rows(height, ranks, 0)

@@ -31,6 +31,7 @@ from codeps_tpu.tasks.adapt import make_adapt_step as jax_make_adapt_step
 
 import _ddp_worker
 import _spatial_worker as worker
+import test_torch_adapt
 from codeps_torch.data.synthetic import (make_cityscapes_tree,
                                          make_kitti360_tree)
 from codeps_torch.io import from_jax
@@ -46,28 +47,34 @@ CONTROL = 1.5
 NUM_SCALES = 5
 
 
-def _jax_noise(step_key):
-    """The automask normals one JAX step draws, in the order the port asks
-    for them (source scales, then the target and replay's), NCHW."""
-    def scales(key, batch):
+def _jax_noise(step_key, target, source, num_replay):
+    """The automask normals one JAX step draws (the target and replay at
+    ``target``'s (height, width), the source at ``source``'s), in the
+    order the port asks for them (source scales, then the target and
+    replay's), NCHW."""
+    def scales(key, batch, size):
         out = []
         for s in range(NUM_SCALES):
             key, sub = jax.random.split(key)
             draw = jax.random.normal(
-                sub, (batch, worker.H >> s, worker.W >> s, 2), jnp.float32)
+                sub, (batch, size[0] >> s, size[1] >> s, 2), jnp.float32)
             out.append(np.asarray(draw).transpose(0, 3, 1, 2))
         return out
     _, loss_key = jax.random.split(step_key)
     key, sub = jax.random.split(loss_key)
-    source = scales(sub, worker.NUM_SOURCE)
+    source_noise = scales(sub, worker.NUM_SOURCE, source)
     _, sub = jax.random.split(key)
-    return source + scales(sub, 1 + worker.NUM_REPLAY)
+    return source_noise + scales(sub, 1 + num_replay, target)
 
 
-def _jax_step(out_dir):
-    """The JAX step on a uint8 batch of ``worker.step_batch``: writes the
-    port's inputs (state dicts, batch, noise) for the ranks and returns
-    the JAX outputs and the weights."""
+def _jax_step(out_dir, batch, name="jax_inputs.pt"):
+    """The JAX step on ``batch`` (uint8 frames, composed mixups): writes
+    the port's inputs (state dicts, batch, noise) for the ranks to
+    ``out_dir / name`` and returns Adam's first moment after the step,
+    the JAX outputs, the batch statistics and the port's config."""
+    target = batch["target"]["frames"].shape[2:4]
+    source = batch["source"]["frames"].shape[2:4]
+    num_replay = batch["target_replay"]["frames"].shape[0]
     jcfg = jax_gen_config(adapt=True, freeze=False)
     jcfg.model.po_depth_net.params.nof_layers = 18
     jcfg.model.pose_sflow_net.params.nof_layers = 18
@@ -77,7 +84,7 @@ def _jax_step(out_dir):
     jcfg.tpu.compute_dtype = "float32"
     jmodules = jax_build_modules(jcfg, num_classes=worker.NC)
     params, stats = jax_init_params(jax.random.PRNGKey(0), jmodules,
-                                    (worker.H, worker.W))
+                                    target)
     params, stats = jax.tree.map(np.array, (params, stats))
     tx = jax_build_optimizer(jcfg, worker.LR, frozen_modules=worker.FROZEN)
     step = jax_make_adapt_step(
@@ -89,22 +96,25 @@ def _jax_step(out_dir):
         jax.tree.map(jnp.asarray, params), jax.tree.map(jnp.asarray, stats),
         tx, jax.random.PRNGKey(2), ema_modules=worker.EMA,
         frozen_modules=worker.FROZEN, ema_alpha=0.99)
-    batch = worker.step_batch(50, np.uint8)
-    noise = _jax_noise(state.rng)
+    noise = _jax_noise(state.rng, target, source, num_replay)
     state, *results = step(state, jax.tree.map(jnp.asarray, batch))
     cfg = worker.step_config()
-    partial = out_dir / "jax_inputs.tmp"
+    partial = out_dir / f"{name}.tmp"
     torch.save({"state_dicts": from_jax.state_dicts_from_jax(params, stats,
                                                              cfg),
                 "batch": batch, "noise": noise}, partial)
-    os.replace(partial, out_dir / "jax_inputs.pt")
-    return (jax.tree.map(np.array, state), jax.tree.map(np.array, results),
+    os.replace(partial, out_dir / name)
+    # Adam's first moment, all of the state the checks read
+    mu = state.opt_state.inner_states["trained"].inner_state[0].mu
+    return (jax.tree.map(np.array, mu), jax.tree.map(np.array, results),
             stats, cfg)
 
 
 def _spawn(out):
-    """Every check's results on each of the 2 ranks, and the JAX step's
-    outputs."""
+    """Every check's results on each of the 2 ranks, and the outputs of
+    the JAX steps on ``worker.step_batch``'s batch at 64x96 and, for the
+    empty slabs, on ``tests/test_torch_adapt.py``'s first batch (target
+    and 2 replay frames at 32x64, source and mixup at 32x96)."""
     make_cityscapes_tree(out / "cs", num_frames=6, width=worker.W,
                          height=worker.H)
     make_kitti360_tree(out / "k360", num_frames=6, width=worker.W,
@@ -117,13 +127,15 @@ def _spawn(out):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for rank in range(2)]
     try:
-        # the ranks run their other checks while JAX compiles its step
-        jax_out = _jax_step(out)
+        # the ranks run their other checks while JAX compiles its steps
+        jax_out = _jax_step(out, worker.step_batch(50, np.uint8))
+        jax_empty = _jax_step(out, test_torch_adapt._batch(1),
+                              "jax_inputs_empty.pt")
     finally:
         _ddp_worker.finish(procs)
     results = [torch.load(out / f"spatial_{rank}.pt", weights_only=False)
                for rank in range(2)]
-    return {"ranks": results, "jax": jax_out}
+    return {"ranks": results, "jax": jax_out, "jax_empty": jax_empty}
 
 
 def spawned(tmp_path_factory):
@@ -168,13 +180,14 @@ def grad_distances(grads, ref):
 def check_against_jax(ours, control, jax_out):
     """A float32 step of the port (``ours``: rank 0's metrics, features,
     eval results and stats, gradients) against the JAX step, with
-    ``control`` the one-process port's step on the same inputs: losses
+    ``control`` the one-process port's step on the same inputs (None: no
+    control, the tolerances alone): losses
     and depth metrics JAX_REL_TOL relative, eval maps and replay features
     JAX_REL_TOL of their maximum, the semantic, panoptic and instance maps
     and ``sem_conf`` equal, a module's gradients JAX_GRAD_MAX and
     JAX_GRAD_L2 or CONTROL times the control's distance, whichever is
     larger."""
-    jstate, (jmetrics, jfeat, jres, jstats), jax_stats, cfg = jax_out
+    mu, (jmetrics, jfeat, jres, jstats), jax_stats, cfg = jax_out
     for key, ref in jmetrics.items():
         rel_close(ours["metrics"][key], ref, JAX_REL_TOL, key)
     feat = ours["features"].numpy()
@@ -192,7 +205,6 @@ def check_against_jax(ours, control, jax_out):
         if key != "sem_conf":
             rel_close(ours["stats"][key], ref, JAX_REL_TOL, key)
     # Adam's first moment after one step from zero is (1 - b1) * g
-    mu = jstate.opt_state.inner_states["trained"].inner_state[0].mu
     convert = {"backbone_pose_sflow": lambda p: from_jax.resnet_encoder(
         p, jax_stats["backbone_pose_sflow"], 18),
         "depth_head": from_jax.depth_head, "pose_head": from_jax.pose_head,
@@ -201,7 +213,8 @@ def check_against_jax(ours, control, jax_out):
         ref = {key: value.numpy() / (1.0 - 0.9)
                for key, value in convert[name](mu[name]).items()}
         split = grad_distances(ours["grads"][name], ref)
-        control_d = grad_distances(control["grads"][name], ref)
+        control_d = (0.0, 0.0) if control is None else grad_distances(
+            control["grads"][name], ref)
         assert split[0] <= max(JAX_GRAD_MAX, CONTROL * control_d[0]), \
             (name, split, control_d)
         assert split[1] <= max(JAX_GRAD_L2, CONTROL * control_d[1]), \
