@@ -1,0 +1,8 @@
+"""The adaptation step's backward a frame, in ms: the program's span
+``step.backward`` (``AdaptationRunner.frame_phases``), mean over the
+window's frames."""
+
+
+def read(record):
+    values = (record.get("frame_phases") or {}).get("step.backward")
+    return sum(values) / len(values) * 1e3 if values else None

@@ -4148,8 +4148,9 @@ def main() -> int:
         == HOST_MIXUP_FRAMES
     host_numbers = stream_numbers(runner, run)
     print_stream("host mixup", host_numbers)
-    mixup_ms = {name: statistics.median(t[WARMUP_FRAMES:]) * 1e3
-                for name, t in runner.mixup_phases.items()}
+    mixup_ms = {name[len("mixup."):]: statistics.median(t[WARMUP_FRAMES:])
+                * 1e3 for name, t in runner.frame_phases.items()
+                if name.startswith("mixup.")}
     refusion_ms = [t * 1e3 for t in run["refusion_s"]]
     mixup_ms["refusion"] = statistics.median(refusion_ms[WARMUP_FRAMES:])
     print("host mixup: main thread in _compose_mixups per frame, median "

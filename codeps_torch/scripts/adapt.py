@@ -213,6 +213,19 @@ def _log_stream(cfg, runner, meters, wandb_logger) -> None:
     if times:
         log_info("Adaptation done: %.2f steps/s (mean over %d frames)",
                  1.0 / max(float(np.mean(times)), 1e-9), len(times))
+        if runner.frame_phases:
+            # the main thread's parts and spans of a frame (tasks/trace.py)
+            log_info("Host ms a frame (mean over the same frames): %s",
+                     ", ".join(f"{name} {np.mean(v[3:] or v) * 1e3:.1f}"
+                               for name, v in runner.frame_phases.items()))
+        counts = {k: v[3:] or v for k, v in runner.frame_counters.items()}
+        if sum(counts.get("h2d_bytes", ())):
+            log_info("Host to device a frame: %.2f MB in %.1f copies, "
+                     "%.1f%% from pageable memory",
+                     np.mean(counts["h2d_bytes"]) / 1e6,
+                     np.mean(counts["h2d_copies"]),
+                     100.0 * sum(counts["h2d_pageable_bytes"])
+                     / sum(counts["h2d_bytes"]))
     else:
         log_info("Adaptation done: 0 frames processed (empty stream?)")
     metrics = meters["metrics"]

@@ -18,6 +18,11 @@ step does, for one streamed frame:
      per-class depth metrics when asked, confusion matrix);
   3. the skip ring's push, Adam, and the per-module EMA blend.
 
+In a frame the runner opens (``tasks/trace.py``) the step's host time
+splits into the contiguous spans ``step.forward`` (to the end of the
+losses), ``step.backward``, ``step.eval`` and ``step.update`` (which holds
+``step.optimizer`` and ``step.ema``).
+
 Batch layout (NHWC, frame axis order [t, t-1, t+1]; numpy or tensors,
 uint8 frames are normalized here, floats are taken as normalized):
   target: frames (1, 3, Ht, Wt, 3), camera (1, 4)
@@ -60,6 +65,7 @@ from codeps_torch.ops.grid_sample import grid_sample_pair_pre
 from codeps_torch.ops.normalize import maybe_normalize
 from codeps_torch.ops.panoptic import panoptic_fusion_batch
 from codeps_torch.parallel import spatial
+from codeps_torch.tasks import trace
 from codeps_torch.tasks.forward import (apply_encoder, depth_forward,
                                         encode_frames)
 from codeps_torch.tasks.optim import set_learning_rate
@@ -340,7 +346,8 @@ def compose_mixup(teacher, mixup, mixup_groups, cut_cfg,
 
 def batch_to_device(tree, device, float_dtype=None):
     """A batch (nested dicts of numpy arrays or tensors) on ``device``;
-    with ``float_dtype`` its floating-point leaves in that type."""
+    with ``float_dtype`` its floating-point leaves in that type. Leaves
+    copied from the host count in the open frame (``trace.upload``)."""
     if isinstance(tree, dict):
         return {k: batch_to_device(v, device, float_dtype)
                 for k, v in tree.items()}
@@ -348,8 +355,8 @@ def batch_to_device(tree, device, float_dtype=None):
         tree = torch.from_numpy(np.asarray(tree))
     if isinstance(tree, torch.Tensor):
         if float_dtype is not None and tree.is_floating_point():
-            return tree.to(device, float_dtype)
-        return tree.to(device)
+            return trace.upload(tree, device, float_dtype)
+        return trace.upload(tree, device)
     return tree
 
 
@@ -862,86 +869,96 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         return total, losses, aux
 
     def adapt_step(state: AdaptState, batch, noise=None):
-        student = state.student
-        frozen = state.frozen_modules
-        batch = batch_to_device(dict(batch), state.device)
-        reuse_feats = (eval_forward is not None
-                       and "backbone_po_depth" in frozen)
-        reuse_depth = (reuse_feats and student.depth_head is not None
-                       and "depth_head" not in state.ema_modules)
-        for name in student.module_names():
-            getattr(student, name).train(name not in frozen)
-        # the side domains this rank holds by images
-        by_images = set()
-        if spatial.hybrid_active():
-            by_images = {domain for domain, how in spatial.hybrid_placement(
-                batch, parallel.world_size()).items() if how == "images"}
-            if student.backbone_po_depth.training and merges(student,
-                                                             batch):
-                # one pass of the live encoder's train-mode BatchNorm over
-                # target and replay: both by rows
-                by_images.discard("target_replay")
-        if spatial.active():
-            _check_row_split(batch, by_images)
-        if noise is None:
-            def noise(shape):
-                return torch.randn(shape, generator=state.generator,
-                                   device=state.device)
-        state.optimizer.zero_grad(set_to_none=True)
+        with trace.span("step.forward"):
+            student = state.student
+            frozen = state.frozen_modules
+            batch = batch_to_device(dict(batch), state.device)
+            reuse_feats = (eval_forward is not None
+                           and "backbone_po_depth" in frozen)
+            reuse_depth = (reuse_feats and student.depth_head is not None
+                           and "depth_head" not in state.ema_modules)
+            for name in student.module_names():
+                getattr(student, name).train(name not in frozen)
+            # the side domains this rank holds by images
+            by_images = set()
+            if spatial.hybrid_active():
+                by_images = {domain for domain, how in
+                             spatial.hybrid_placement(
+                                 batch, parallel.world_size()).items()
+                             if how == "images"}
+                if student.backbone_po_depth.training and merges(student,
+                                                                 batch):
+                    # one pass of the live encoder's train-mode BatchNorm
+                    # over target and replay: both by rows
+                    by_images.discard("target_replay")
+            if spatial.active():
+                _check_row_split(batch, by_images)
+            if noise is None:
+                def noise(shape):
+                    return torch.randn(shape, generator=state.generator,
+                                       device=state.device)
+            state.optimizer.zero_grad(set_to_none=True)
 
-        total, losses, aux = loss_fn(state, batch, noise, reuse_feats,
-                                     reuse_depth, by_images)
-        total.backward()
-        if spatial.active():
-            # each rank's loss is its rows' or images' share: the sum is
-            # the gradient
-            parallel.sum_gradients(student.parameters())
+            total, losses, aux = loss_fn(state, batch, noise, reuse_feats,
+                                         reuse_depth, by_images)
+        with trace.span("step.backward"):
+            total.backward()
+            if spatial.active():
+                # each rank's loss is its rows' or images' share: the sum
+                # is the gradient
+                parallel.sum_gradients(student.parameters())
 
         eval_out = None
         if eval_forward is not None:
-            # The teacher eval reads the weights from before the update.
-            student.eval()
-            eval_batch = {"frames": batch["target"]["frames"],
-                          **batch.get("eval_gt", {})}
-            if reuse_feats:
-                view = types.SimpleNamespace(**{
-                    name: getattr(state.teacher if name in state.ema_modules
-                                  else student, name)
-                    for name in MODULE_NAMES})
-                eval_out = eval_forward(view, eval_batch,
-                                        feats=aux["eval_feats"],
-                                        depth=aux.get("eval_depth"))
+            with trace.span("step.eval"):
+                # The teacher eval reads the weights from before the update.
+                student.eval()
+                eval_batch = {"frames": batch["target"]["frames"],
+                              **batch.get("eval_gt", {})}
+                if reuse_feats:
+                    view = types.SimpleNamespace(**{
+                        name: getattr(state.teacher
+                                      if name in state.ema_modules
+                                      else student, name)
+                        for name in MODULE_NAMES})
+                    eval_out = eval_forward(view, eval_batch,
+                                            feats=aux["eval_feats"],
+                                            depth=aux.get("eval_depth"))
+                else:
+                    eval_out = eval_forward(state.teacher, eval_batch)
+
+        with trace.span("step.update"):
+            if student.depth_head is not None:
+                skip = aux["target_skipped"]
+                state.dist_buffer, state.dist_count, state.dist_head = \
+                    push_ring_buffer(state.dist_buffer, state.dist_count,
+                                     state.dist_head, aux["dist"], skip)
             else:
-                eval_out = eval_forward(state.teacher, eval_batch)
+                skip = torch.zeros((), dtype=torch.bool, device=state.device)
 
-        if student.depth_head is not None:
-            skip = aux["target_skipped"]
-            state.dist_buffer, state.dist_count, state.dist_head = \
-                push_ring_buffer(state.dist_buffer, state.dist_count,
-                                 state.dist_head, aux["dist"], skip)
-        else:
-            skip = torch.zeros((), dtype=torch.bool, device=state.device)
+            with trace.span("step.optimizer"):
+                set_learning_rate(state.optimizer,
+                                  state.schedule(state.step))
+                state.optimizer.step()
+            with trace.span("step.ema"), torch.no_grad():
+                _blend_ema(state, bool(batch.get("do_ema", True)))
+            state.step += 1
 
-        set_learning_rate(state.optimizer, state.schedule(state.step))
-        state.optimizer.step()
-        with torch.no_grad():
-            _blend_ema(state, bool(batch.get("do_ema", True)))
-        state.step += 1
-
-        values = {"loss_total": total.detach(),
-                  **{k: v.detach() for k, v in losses.items()}}
-        if spatial.active():
-            # the shares of the ranks add up to the global values
-            values = dict(zip(values, parallel.all_reduce(
-                torch.stack(list(values.values()))).unbind()))
-        metrics = {"loss_total": values.pop("loss_total"),
-                   "target_skipped": skip, **values}
-        if eval_forward is not None:
-            results = eval_out[0]
-            if results is not None and "object_motion_map" in aux:
-                # (2, B, H, W, 3), the pair [-flow(t-1, t), flow(t, t+1)]
-                results["object_motion_map"] = aux["object_motion_map"]
-            return metrics, aux["image_features"], results, eval_out[1]
-        return metrics, aux["image_features"]
+            values = {"loss_total": total.detach(),
+                      **{k: v.detach() for k, v in losses.items()}}
+            if spatial.active():
+                # the shares of the ranks add up to the global values
+                values = dict(zip(values, parallel.all_reduce(
+                    torch.stack(list(values.values()))).unbind()))
+            metrics = {"loss_total": values.pop("loss_total"),
+                       "target_skipped": skip, **values}
+            if eval_forward is not None:
+                results = eval_out[0]
+                if results is not None and "object_motion_map" in aux:
+                    # (2, B, H, W, 3), the pair [-flow(t-1, t),
+                    # flow(t, t+1)]
+                    results["object_motion_map"] = aux["object_motion_map"]
+                return metrics, aux["image_features"], results, eval_out[1]
+            return metrics, aux["image_features"]
 
     return adapt_step

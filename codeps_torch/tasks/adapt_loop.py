@@ -76,6 +76,7 @@ from codeps_torch.evaluation import (AverageMeter, ConfusionMatrixMeter,
                                      ConstantMeter, PanopticEvaluator,
                                      compute_sem_miou)
 from codeps_torch.parallel import spatial
+from codeps_torch.tasks import trace
 from codeps_torch.tasks.adapt import (batch_to_device, build_eval_forward,
                                       make_adapt_step, make_eval_step,
                                       make_gt_panoptic_step,
@@ -134,18 +135,6 @@ def _queue_host(tree, device):
     event = torch.cuda.Event()
     event.record()
     return host, event
-
-
-def _phase_clock(phases: Dict[str, List[float]], start: float):
-    """``mark(name)`` appends the seconds since the last mark (or
-    ``start``) to ``phases[name]``."""
-    last = [start]
-
-    def mark(name: str) -> None:
-        now = time.perf_counter()
-        phases.setdefault(name, []).append(now - last[0])
-        last[0] = now
-    return mark
 
 
 def _numpy(tree):
@@ -275,12 +264,14 @@ class AdaptationRunner:
         # host seconds of each buffer.__getitem__ (worker thread) and add
         self.host_times: Dict[str, List[float]] = {"getitem": [], "add": []}
         # host seconds of each part of an adapted frame on the main thread
-        # (the previous frame's meters wait for its device work)
+        # (the previous frame's meters wait for its device work), and of
+        # each span inside one (``tasks/trace.py``; on the host mixup path
+        # with the camera warp ``mixup.prep``, ``mixup.readback`` and each
+        # strategy's composition, ``mixup.<strategy>``); its host-to-device
+        # copies and bytes (``trace.upload``): one entry a frame
         self.frame_phases: Dict[str, List[float]] = {}
-        # on the host mixup path with the camera warp: host seconds of its
-        # parts (prep, readback, then each strategy's composition) and the
-        # instances each conf_instance_mixup item pasted
-        self.mixup_phases: Dict[str, List[float]] = {}
+        self.frame_counters: Dict[str, List[int]] = {}
+        # the instances each conf_instance_mixup item pasted
         self.pasted_instances: List[int] = []
 
     # ------------------------------------------------------------------
@@ -437,55 +428,55 @@ class AdaptationRunner:
         if not cfg_mixup.general.geom_augment:
             return self._compose_mixups_unfused(items)
 
-        mark = _phase_clock(self.mixup_phases, time.perf_counter())
-        rgb_tgt = np.stack([np.asarray(item["rgb_tgt"][0])
-                            for _, item in items])
-        if rgb_tgt.dtype != np.uint8:
-            rgb_tgt = rgb_tgt.astype(np.float32)
-        intr_src = np.stack([np.asarray(item["camera_model_src"], np.float32)
-                             for _, item in items])
-        intr_tgt = np.stack([np.asarray(item["camera_model_tgt"], np.float32)
-                             for _, item in items])
-        warped = self.plabel_prep(
-            self.state.teacher, self._to_device(rgb_tgt),
-            self._c2c_prewarp_cached(intr_tgt, intr_src, rgb_tgt.shape[1:3]))
-        mark("prep")
-        rgb_w, sem_w, inst_w = (t.cpu().numpy() for t in warped)
-        mark("readback")
+        with trace.span("mixup.prep"):
+            rgb_tgt = np.stack([np.asarray(item["rgb_tgt"][0])
+                                for _, item in items])
+            if rgb_tgt.dtype != np.uint8:
+                rgb_tgt = rgb_tgt.astype(np.float32)
+            intr_src = np.stack([np.asarray(item["camera_model_src"],
+                                            np.float32) for _, item in items])
+            intr_tgt = np.stack([np.asarray(item["camera_model_tgt"],
+                                            np.float32) for _, item in items])
+            warped = self.plabel_prep(
+                self.state.teacher, self._to_device(rgb_tgt),
+                self._c2c_prewarp_cached(intr_tgt, intr_src,
+                                         rgb_tgt.shape[1:3]))
+        with trace.span("mixup.readback"):
+            rgb_w, sem_w, inst_w = (t.cpu().numpy() for t in warped)
 
         composed = []
         for i, (strategy, item) in enumerate(items):
-            # rgb_w is normalized; the source frame must match its scale
-            img_src = self._host_normalize(item["rgb_src"][0])
-            semantic_src = np.asarray(item["semantic_src"])
-            instance_src = np.asarray(item["instance_src"])
-            if strategy == "cut_mixup":
-                rgb, semantic, instance = Mixup.cut_mixup(
-                    self.mixup_rng, img_src, rgb_w[i], instance_src,
-                    semantic_src, sem_w[i], inst_w[i],
-                    cfg_mixup.cut_mix.nof_vert_splits,
-                    cfg_mixup.cut_mix.nof_hor_splits,
-                    cfg_mixup.cut_mix.nof_segments)
-            elif strategy == "class_mixup":
-                rgb, semantic, instance = Mixup.class_mixup(
-                    self.mixup_rng, img_src, rgb_w[i], instance_src,
-                    semantic_src, sem_w[i], inst_w[i])
-            else:
-                stats: Dict[str, int] = {}
-                rgb, semantic, instance = Mixup.conf_instance_mixup(
-                    img_src, rgb_w[i], instance_src, semantic_src,
-                    sem_w[i], inst_w[i],
-                    cfg_mixup.conf_instance_mix.min_inst_size,
-                    thing_list=self.thing_list,
-                    num_classes=self.num_classes,
-                    conf_thresh=cfg_mixup.conf_instance_mix.conf_thresh,
-                    device=self.device, stats=stats)
-                self.pasted_instances.append(stats["pasted"])
-            composed.append({"rgb": {0: rgb},
-                             "camera_model": item["camera_model_src"],
-                             "semantic": semantic, "instance": instance,
-                             "strategy": strategy})
-            mark(strategy)
+            with trace.span("mixup." + strategy):
+                # rgb_w is normalized; the source frame must match its scale
+                img_src = self._host_normalize(item["rgb_src"][0])
+                semantic_src = np.asarray(item["semantic_src"])
+                instance_src = np.asarray(item["instance_src"])
+                if strategy == "cut_mixup":
+                    rgb, semantic, instance = Mixup.cut_mixup(
+                        self.mixup_rng, img_src, rgb_w[i], instance_src,
+                        semantic_src, sem_w[i], inst_w[i],
+                        cfg_mixup.cut_mix.nof_vert_splits,
+                        cfg_mixup.cut_mix.nof_hor_splits,
+                        cfg_mixup.cut_mix.nof_segments)
+                elif strategy == "class_mixup":
+                    rgb, semantic, instance = Mixup.class_mixup(
+                        self.mixup_rng, img_src, rgb_w[i], instance_src,
+                        semantic_src, sem_w[i], inst_w[i])
+                else:
+                    stats: Dict[str, int] = {}
+                    rgb, semantic, instance = Mixup.conf_instance_mixup(
+                        img_src, rgb_w[i], instance_src, semantic_src,
+                        sem_w[i], inst_w[i],
+                        cfg_mixup.conf_instance_mix.min_inst_size,
+                        thing_list=self.thing_list,
+                        num_classes=self.num_classes,
+                        conf_thresh=cfg_mixup.conf_instance_mix.conf_thresh,
+                        device=self.device, stats=stats)
+                    self.pasted_instances.append(stats["pasted"])
+                composed.append({"rgb": {0: rgb},
+                                 "camera_model": item["camera_model_src"],
+                                 "semantic": semantic, "instance": instance,
+                                 "strategy": strategy})
         return composed
 
     def _compose_mixups_unfused(self, items) -> List[Dict[str, Any]]:
@@ -538,11 +529,11 @@ class AdaptationRunner:
                 or "semantic" not in eval_gt:
             return None
         target = sample["target"]
-        center = torch.from_numpy(np.asarray(
-            target["center"], np.float32)[None]).to(self.device)
+        center = trace.upload(torch.from_numpy(np.asarray(
+            target["center"], np.float32)[None]), self.device)
         planes = np.ascontiguousarray(
             np.asarray(target["offset"], np.float32).transpose(2, 0, 1))
-        offset = torch.from_numpy(planes[None]).to(self.device) \
+        offset = trace.upload(torch.from_numpy(planes[None]), self.device) \
             .permute(0, 2, 3, 1)
         return self.gt_panoptic(eval_gt.get("semantic_eval",
                                             eval_gt["semantic"]),
@@ -759,8 +750,9 @@ class AdaptationRunner:
                 if "target" not in sample:
                     continue
                 start = time.perf_counter()
-                eval_gt = self._to_device(self._target_gt(sample["target"]))
                 if self.disable_adaptation:
+                    eval_gt = self._to_device(
+                        self._target_gt(sample["target"]))
                     eval_batch = dict(eval_gt, frames=self._to_device(
                         frames_from_sample(sample["target"], self.offsets)))
                     results, stats = self._call_eval(eval_batch)
@@ -777,55 +769,60 @@ class AdaptationRunner:
                         on_frame(it)
                     continue
 
-                mark = _phase_clock(self.frame_phases, start)
-                mixup_samples = []
-                if self.mixup_active and not self.fused_mixup:
-                    mixup_samples = self._compose_mixups(sample)
-                    mark("mixup")
-                batch = self._to_device(self._adapt_batch(sample,
-                                                          mixup_samples))
-                batch["eval_gt"] = eval_gt
-                mark("batch")
-                replay = "target_replay" in batch
-                results = stats = features = accum = None
-                nsteps = self.adaptation_steps
-                for step_i in range(nsteps):
-                    batch["do_ema"] = step_i == nsteps - 1
-                    out = self._call_step(replay, step_i == 0, batch)
-                    if step_i == 0:
-                        metrics, features, results, stats = out
-                    else:
-                        metrics, features = out
-                    metrics = {k: v for k, v in metrics.items()
-                               if k != "target_skipped"}
-                    accum = metrics if accum is None else {
-                        k: accum[k] + metrics[k] for k in accum}
-
-                mark("step")
-                pan_gt = self._gt_panoptic(sample, eval_gt, results)
-                host, event = _queue_host(
-                    {"stats": stats, "accum": accum, "pan_gt": pan_gt,
-                     "features": features,
-                     "results": self._host_results(it, log_interval,
-                                                   results)},
-                    self.device)
-                mark("gt_map")
-                # the previous frame's meters and add while this frame runs;
-                # its successor is sampled before the previous frame's add
-                if pending_frame is not None:
-                    consume(pending_frame)
-                pending_frame = {"event": event, "host": host,
-                                 "nsteps": nsteps, "it": it,
-                                 "sample": sample}
-                mark("meters")
-                if it + 1 < num_frames:
-                    concurrent.futures.wait([pending])
-                mark("prefetch_wait")
-                if pending_add is not None:
-                    add(*pending_add)
-                pending_add = (sample["index"], host["features"])
-                mark("add")
-                self.step_times.append(time.perf_counter() - start)
+                with trace.frame(it, self.frame_phases, self.frame_counters):
+                    phase = trace.clock(start)
+                    mixup_samples = []
+                    if self.mixup_active and not self.fused_mixup:
+                        with phase("mixup"):
+                            mixup_samples = self._compose_mixups(sample)
+                    with phase("batch"):
+                        with trace.span("batch.assemble"):
+                            eval_gt = self._target_gt(sample["target"])
+                            batch = self._adapt_batch(sample, mixup_samples)
+                        with trace.span("batch.upload"):
+                            eval_gt = self._to_device(eval_gt)
+                            batch = self._to_device(batch)
+                        batch["eval_gt"] = eval_gt
+                    replay = "target_replay" in batch
+                    results = stats = features = accum = None
+                    nsteps = self.adaptation_steps
+                    with phase("step"):
+                        for step_i in range(nsteps):
+                            batch["do_ema"] = step_i == nsteps - 1
+                            out = self._call_step(replay, step_i == 0, batch)
+                            if step_i == 0:
+                                metrics, features, results, stats = out
+                            else:
+                                metrics, features = out
+                            metrics = {k: v for k, v in metrics.items()
+                                       if k != "target_skipped"}
+                            accum = metrics if accum is None else {
+                                k: accum[k] + metrics[k] for k in accum}
+                    with phase("gt_map"):
+                        pan_gt = self._gt_panoptic(sample, eval_gt, results)
+                        host, event = _queue_host(
+                            {"stats": stats, "accum": accum,
+                             "pan_gt": pan_gt, "features": features,
+                             "results": self._host_results(it, log_interval,
+                                                           results)},
+                            self.device)
+                    # the previous frame's meters and add while this frame
+                    # runs; its successor is sampled before the previous
+                    # frame's add
+                    with phase("meters"):
+                        if pending_frame is not None:
+                            consume(pending_frame)
+                        pending_frame = {"event": event, "host": host,
+                                         "nsteps": nsteps, "it": it,
+                                         "sample": sample}
+                    with phase("prefetch_wait"):
+                        if it + 1 < num_frames:
+                            concurrent.futures.wait([pending])
+                    with phase("add"):
+                        if pending_add is not None:
+                            add(*pending_add)
+                        pending_add = (sample["index"], host["features"])
+                    self.step_times.append(time.perf_counter() - start)
                 if on_frame is not None:
                     on_frame(it)
 

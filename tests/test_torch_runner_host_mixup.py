@@ -177,7 +177,7 @@ def test_host_path_is_taken(streams):
     assert len(prunner.pasted_instances) == FRAMES
     assert sum(prunner.pasted_instances) >= 1, prunner.pasted_instances
     for name in ("prep", "readback", "cut_mixup", "conf_instance_mixup"):
-        assert len(prunner.mixup_phases[name]) == FRAMES, name
+        assert len(prunner.frame_phases["mixup." + name]) == FRAMES, name
 
 
 def test_host_mixup_losses_match(streams):
@@ -225,7 +225,8 @@ def test_unwarped_stream_with_uint8_frames(trees, weights):
     for name, meter in meters["losses"].items():
         if meter.count:
             assert np.isfinite(_value(meters, "losses", name)), name
-    assert not runner.mixup_phases      # the warped path's parts only
+    # the warped path's parts only
+    assert not [k for k in runner.frame_phases if k.startswith("mixup.")]
 
 
 def test_uint8_frames_compose_as_float_frames(trees, weights):
