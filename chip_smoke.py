@@ -65,7 +65,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
     over their summed wall time), the host time of
     ``ReplayBuffer.__getitem__`` and of ``buffer.add``, the peak memory
     and the final PQ, mIoU and abs_rel; times the published rare-class
-    source sampling on its own. Then the same stream again with frames
+    source sampling on its own. Then one more step of the stream's last
+    batch from the state it left, replayed through the step's CUDA graph
+    and twice eagerly with the generator's draws handed in as ``noise``:
+    the losses, replay features and skip ring must be equal, the live
+    gradients, the live student and the EMA teacher within
+    GRAPH_SPREAD_FACTOR times the eager path's own spread. Then the same stream again with frames
     PROFILED_FRAMES after the warm-up traced by ``torch.profiler``: the
     card's busy share of the host's wall time; the stream with uint8
     frames (``normalization.uint8_transfer``), as a second row;
@@ -231,9 +236,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
     the CLI's, pretraining's, the host mixup path's and the flow paths'
     shapes and the launches and layout copies on each path), the
     ``adapt_step``, ``adapt_stream``, ``adapt_cli``, ``train``,
-    ``host_mixup_stream``, ``flow``, ``ddp`` and ``spatial`` lines, the
+    ``host_mixup_stream``, ``step_graph``, ``flow``, ``ddp`` and
+    ``spatial`` lines, the
     script's total wall seconds, then the last line ``{"ok": true,
     "device": {...}}``. Each phase's wall seconds are printed as it ends.
+
+Every stream on the card that draws its automask noise from the step's
+generator (phase 7's published, traced and uint8 streams, phase 8's CLI
+stream, phase 11's and phase 12 (b)'s) runs the adaptation step through
+its CUDA graph (``tasks/step_graph.py``): ``check_step_graph`` requires
+each frame to take one eager step or one replay, at least one capture,
+and a replay in the last frame, and prints the counts; the ``step_graph``
+line of phase 15 holds them. The comparisons with the CPU inject their
+noise and take the eager path.
 
 The full-width runs compute in bfloat16, the package default
 (``cfg.tpu.compute_dtype``, as the JAX package's); phase 6 also times the
@@ -304,6 +319,11 @@ SOURCE_IMAGES = 8
 WARMUP_FRAMES = 2
 # stream frames profiled after the warm-up, for the card's busy share
 PROFILED_FRAMES = 3
+# a step replayed through the adaptation step's CUDA graph against the
+# eager step: gradients and weights within this many times the eager
+# path's own spread (float32 atomics in the bilinear and grid-sample
+# backwards sum in another order each run)
+GRAPH_SPREAD_FACTOR = 4.0
 # full-size images of the two datasets, (W, H)
 KITTI_360_FULL = (1408, 376)
 CITYSCAPES_FULL = (2048, 1024)
@@ -1229,6 +1249,117 @@ def numpy_noise(torch, seed, device):
         return torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(device)
     return noise
+
+
+def check_step_graph(name, runner):
+    """The adaptation step's CUDA graph (``tasks/step_graph.py``) in a
+    stream on one card with the step's own noise: every frame takes one
+    eager step or one replay, a capture comes only in a replayed frame,
+    at least one graph is captured and the last frame replays. Prints and
+    returns the stream's counts."""
+    counters = runner.frame_counters
+    eager, captures, replays = (counters[f"step.{kind}"] for kind in
+                                ("eager_steps", "graph_captures",
+                                 "graph_replays"))
+    for e, c, r in zip(eager, captures, replays):
+        assert e + r == 1 and c <= r, (name, eager, captures, replays)
+    assert sum(captures) >= 1 and replays[-1] == 1, (name, captures,
+                                                     replays)
+    counts = {"frames": len(eager), "eager": sum(eager),
+              "captures": sum(captures), "replays": sum(replays),
+              "eager_frames": [i for i, e in enumerate(eager) if e]}
+    print(f"{name}: adaptation steps in {counts['frames']} frames: "
+          f"{counts['eager']} eager (frames {counts['eager_frames']}), "
+          f"{counts['captures']} graph capture(s), {counts['replays']} "
+          f"replays")
+    return counts
+
+
+def keep_last_step(runner):
+    """Wraps ``runner``'s step functions; the returned dict then holds
+    the last one called and its batch."""
+    kept = {}
+
+    def keeping(step):
+        def call(state, batch, noise=None):
+            kept.update(step=step, batch=batch)
+            return step(state, batch, noise=noise)
+        return call
+    runner.steps = {key: keeping(step) for key, step in runner.steps.items()}
+    return kept
+
+
+def graphed_against_eager(torch, runner, kept):
+    """One more step of the stream's last batch (``keep_last_step``) from
+    the state the stream left: replayed through its graph, then twice
+    eagerly with the state's generator handed in as ``noise`` (the same
+    draws, on the eager path), the state restored before each. The
+    losses, the replay features and the skip ring must be equal; the live
+    parameters' gradients, the live student and the EMA teacher within
+    GRAPH_SPREAD_FACTOR times the eager path's own spread (relative L2).
+    Returns the distances."""
+    from codeps_torch.tasks import trace
+    state, step, batch = runner.state, kept["step"], kept["batch"]
+    ring = (state.dist_buffer, state.dist_count, state.dist_head)
+    live = [p for group in state.optimizer.param_groups
+            for p in group["params"]]
+    ema = [p for name in state.ema_modules
+           for p in getattr(state.teacher, name).parameters()]
+    saved = ({k: v.clone() for k, v in state.student.state_dict().items()},
+             {k: v.clone() for k, v in state.teacher.state_dict().items()},
+             copy.deepcopy(state.optimizer.state_dict()),
+             state.generator.get_state(), [t.clone() for t in ring],
+             state.step)
+
+    def restore():
+        student, teacher, optimizer, generator, values, count = saved
+        state.student.load_state_dict(student)
+        state.teacher.load_state_dict(teacher)
+        state.optimizer.load_state_dict(optimizer)
+        state.generator.set_state(generator)
+        for tensor, value in zip(ring, values):
+            tensor.copy_(value)
+        state.step = count
+
+    def generator_noise(shape):
+        return torch.randn(shape, generator=state.generator,
+                           device=state.device)
+
+    def flat(tensors):
+        return torch.cat([t.detach().double().flatten() for t in tensors])
+
+    readings = []
+    for noise in (None, generator_noise, generator_noise):
+        restore()
+        phases, counters = {}, {}
+        with trace.frame(0, phases, counters):
+            out = step(state, batch, noise=noise)
+        assert counters["step.graph_replays"] == [int(noise is None)], \
+            counters
+        readings.append({
+            "losses": {k: v.detach().clone() for k, v in out[0].items()},
+            "features": out[1].detach().clone(),
+            "ring": [t.clone() for t in ring],
+            "grads": flat(p.grad for p in live if p.grad is not None),
+            "student": flat(live), "teacher": flat(ema)})
+    restore()
+    graphed, eager, again = readings
+    assert set(graphed["losses"]) == set(eager["losses"])
+    for name, value in eager["losses"].items():
+        assert torch.equal(graphed["losses"][name], value), name
+    assert torch.equal(graphed["features"], eager["features"])
+    for got, want in zip(graphed["ring"], eager["ring"]):
+        assert torch.equal(got, want), "skip ring"
+    distances = {}
+    for kind in ("grads", "student", "teacher"):
+        def rel(a, b):
+            return float((a - b).norm() / b.norm())
+        gap = rel(graphed[kind], eager[kind])
+        spread = rel(again[kind], eager[kind])
+        distances[kind] = {"graphed": gap, "eager_spread": spread}
+        assert gap <= max(1e-6, GRAPH_SPREAD_FACTOR * spread), (kind, gap,
+                                                                spread)
+    return distances
 
 
 def meter_values(meters):
@@ -3567,7 +3698,16 @@ def main() -> int:
           f"{len(buffer.source_data)} images of {SOURCE_HEIGHT}x"
           f"{SOURCE_WIDTH}; frozen {list(runner.state.frozen_modules)}, EMA "
           f"{list(runner.state.ema_modules)}")
+    kept = keep_last_step(runner)
     meters, run = drive_stream(torch, runner, card=True)
+    graph_counts = {"published": check_step_graph("published", runner)}
+    graph_parity = graphed_against_eager(torch, runner, kept)
+    print("published: one more step of the last batch, replayed against "
+          "eager (the generator's draws handed in): losses, replay "
+          "features and skip ring equal; relative L2 " + ", ".join(
+              f"{k} {v['graphed']:.3e} (eager's own spread "
+              f"{v['eager_spread']:.3e})" for k, v in graph_parity.items()))
+    del kept
     stream_launches, stream_copies = run["launches"], run["copies"]
     stream_err = run["max_abs_err"]
     print(f"grouping launches in the stream: {stream_launches} in {frames} "
@@ -3631,6 +3771,7 @@ def main() -> int:
             prof.step()
         drive_stream(torch, runner, card=True, max_frames=last + 1,
                      on_frame=on_frame)
+    graph_counts["traced"] = check_step_graph("traced", runner)
     busy_us, start_us, end_us = traced["busy"]
     assert busy_us > 0, "no device work in the profiled frames"
     window_ms = (marks[last] - marks[first - 1]) * 1e3
@@ -3657,6 +3798,7 @@ def main() -> int:
                              SEED)
     meters, run = drive_stream(torch, runner, card=True)
     assert run["frames"] == frames, run["frames"]
+    graph_counts["uint8_frames"] = check_step_graph("uint8 frames", runner)
     check_gt_maps(run["pq_maps"], runner.stuff_list, runner.thing_list)
     print(f"uint8 frames: grouping launches {run['launches']} in {frames} "
           f"frames, layout copies {run['copies']}, kernel == plain on every "
@@ -3758,6 +3900,7 @@ def main() -> int:
     assert load["modules"] == list(saved), load["modules"]
     runner = parts["runner"]
     cli_frames = runner.state.step
+    graph_counts["cli"] = check_step_graph("CLI stream", runner)
     batches = {"target_val": 0, "source_val": 0}
     for name, n in (("stream", cli_frames),
                     ("target_val", len(parts["target_val"]["batch_s"])),
@@ -4122,6 +4265,8 @@ def main() -> int:
     meters, run = drive_host_mixup_stream(torch, runner, True,
                                           HOST_MIXUP_FRAMES)
     assert run["frames"] == HOST_MIXUP_FRAMES, run["frames"]
+    graph_counts["host_mixup"] = check_step_graph("host mixup stream",
+                                                  runner)
     host_launches, host_copies = run["launches"], run["copies"]
     host_err = run["max_abs_err"]
     refusion_shape = (1, SOURCE_HEIGHT, SOURCE_WIDTH)
@@ -4270,6 +4415,7 @@ def main() -> int:
     meters, run = drive_stream(torch, runner, card=True,
                                max_frames=FLOW_STREAM_FRAMES)
     assert run["frames"] == FLOW_STREAM_FRAMES, run["frames"]
+    graph_counts["flow_stream"] = check_step_graph("flow stream", runner)
     check_gt_maps(run["pq_maps"], runner.stuff_list, runner.thing_list)
     for name in ("flow_smth", "flow_sparsity"):
         assert meters["losses"][name].count == FLOW_STREAM_FRAMES, name
@@ -5215,6 +5361,8 @@ def main() -> int:
                                 "copies": train_copies,
                                 "depth_only": depth_numbers}}))
     print(json.dumps({"host_mixup_stream": host_mixup}))
+    print(json.dumps({"step_graph": {"counts": graph_counts,
+                                     "published_parity": graph_parity}}))
     print(json.dumps({"flow": flow_numbers}))
     print(json.dumps({"ddp": ddp_numbers}))
     print(json.dumps({"spatial": spatial_numbers}))

@@ -23,10 +23,13 @@ def make_intrinsics(fx, fy, cx, cy) -> torch.Tensor:
 
 def scale_intrinsics(intrinsics: torch.Tensor, scale_u: float,
                      scale_v: float) -> torch.Tensor:
-    """Scale intrinsics by per-axis image-resize factors."""
-    scale = torch.tensor([scale_u, scale_v, scale_u, scale_v],
-                         dtype=intrinsics.dtype, device=intrinsics.device)
-    return intrinsics * scale
+    """Scale intrinsics by per-axis image-resize factors: fx and cx by
+    ``scale_u``, fy and cy by ``scale_v``, each a product in the
+    intrinsics' dtype. The factors stay Python numbers: no tensor comes
+    from the host, so the call may run inside a CUDA graph's capture."""
+    pairs = intrinsics.unflatten(-1, (2, 2))      # [[fx, fy], [cx, cy]]
+    return torch.stack([pairs[..., 0] * scale_u, pairs[..., 1] * scale_v],
+                       dim=-1).flatten(-2)
 
 
 def scale_intrinsics_to_size(intrinsics: torch.Tensor,

@@ -40,9 +40,9 @@ def translation_matrix(translation: torch.Tensor) -> torch.Tensor:
     batch = translation.shape[0]
     eye = torch.eye(4, dtype=translation.dtype, device=translation.device)
     pad = torch.cat([translation, translation.new_zeros(batch, 1)], dim=-1)
-    last_col = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=translation.dtype,
-                            device=translation.device)
-    return eye + pad[:, :, None] * last_col[None, None, :]
+    # eye's last row is the selector (0, 0, 0, 1) of the last column, made
+    # on the device (no host copy, so safe inside a CUDA graph's capture)
+    return eye + pad[:, :, None] * eye[3][None, None, :]
 
 
 def _matmul4(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

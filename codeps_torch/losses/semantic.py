@@ -20,6 +20,7 @@ from typing import Callable, Sequence
 import torch
 
 from codeps_torch import parallel
+from codeps_torch.device import constant
 from codeps_torch.geometry.warp import warp_image
 from codeps_torch.models.precision import loss_dtype, widened
 from codeps_torch.parallel import spatial
@@ -95,8 +96,8 @@ def semantic_loss(prediction: torch.Tensor, target: torch.Tensor,
             prediction, target, class_weights, ignore_labels, ignore_index)
     weights = None
     if class_weights is not None:
-        weights = torch.tensor(list(class_weights), dtype=prediction.dtype,
-                               device=prediction.device)
+        weights = constant(class_weights, prediction.dtype,
+                           prediction.device)
     loss = cross_entropy_per_pixel(prediction, target, weights, ignore_index)
     loss = loss * pixel_weights
     if top_k_percent_pixels < 1.0:
@@ -161,8 +162,7 @@ def semantic_consistency_loss(
                 pred, labels, cw_list, ignore_labels, ignore_index)
         weights = None
         if cw_list is not None:
-            weights = torch.tensor(list(cw_list), dtype=pred.dtype,
-                                   device=pred.device)
+            weights = constant(cw_list, pred.dtype, pred.device)
         loss = cross_entropy_per_pixel(pred, labels, weights, ignore_index)
         loss = loss * pixel_weights
         if photometric is not None:

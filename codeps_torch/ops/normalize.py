@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from codeps_torch.device import constant
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
@@ -22,6 +24,6 @@ def maybe_normalize(images: torch.Tensor, mean=IMAGENET_MEAN,
     """
     if images.dtype != torch.uint8:
         return images
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=images.device)
-    std_t = torch.tensor(std, dtype=torch.float32, device=images.device)
+    mean_t = constant(mean, torch.float32, images.device)
+    std_t = constant(std, torch.float32, images.device)
     return (images.to(torch.float32) / 255.0 - mean_t) / std_t

@@ -226,6 +226,13 @@ def _log_stream(cfg, runner, meters, wandb_logger) -> None:
                      np.mean(counts["h2d_copies"]),
                      100.0 * sum(counts["h2d_pageable_bytes"])
                      / sum(counts["h2d_bytes"]))
+        if "step.eager_steps" in runner.frame_counters:
+            # the steps of the whole stream (tasks/step_graph.py)
+            log_info("Adaptation steps: %d eager, %d graph capture(s), "
+                     "%d graph replay(s)", *(
+                         sum(runner.frame_counters[f"step.{name}"])
+                         for name in ("eager_steps", "graph_captures",
+                                      "graph_replays")))
     else:
         log_info("Adaptation done: 0 frames processed (empty stream?)")
     metrics = meters["metrics"]

@@ -18,9 +18,18 @@ step does, for one streamed frame:
      per-class depth metrics when asked, confusion matrix);
   3. the skip ring's push, Adam, and the per-module EMA blend.
 
+On one CUDA card, in one process, with the automask noise left to the
+state's generator, the losses of part 1 and their backward run as one
+CUDA graph (``tasks/step_graph.py``), replayed for every batch of a
+signature after a warm-up and a capture; the rest of the step runs
+eagerly.
+
 In a frame the runner opens (``tasks/trace.py``) the step's host time
 splits into the contiguous spans ``step.forward`` (to the end of the
-losses), ``step.backward``, ``step.eval`` and ``step.update`` (which holds
+losses; on the graphed path the inputs' copy, the replay, the
+gradients handed to the parameters and the outputs' clones, and in the
+warm-up before a capture the backward too), ``step.backward`` (nothing
+on the graphed path), ``step.eval`` and ``step.update`` (which holds
 ``step.optimizer`` and ``step.ema``).
 
 Batch layout (NHWC, frame axis order [t, t-1, t+1]; numpy or tensors,
@@ -70,6 +79,7 @@ from codeps_torch.tasks.forward import (apply_encoder, depth_forward,
                                         encode_frames)
 from codeps_torch.tasks.optim import set_learning_rate
 from codeps_torch.tasks.state import DIST_BUFFER_LEN, AdaptState
+from codeps_torch.tasks.step_graph import StepGraphs, count_step
 
 __all__ = ["DIST_BUFFER_LEN", "batch_to_device", "build_eval_forward",
            "make_eval_step", "make_gt_panoptic_step", "skip_decision",
@@ -235,15 +245,19 @@ def skip_decision(dist_buffer: torch.Tensor, dist_count: torch.Tensor,
 def push_ring_buffer(dist_buffer: torch.Tensor, dist_count: torch.Tensor,
                      dist_head: torch.Tensor, dist: torch.Tensor,
                      skip: torch.Tensor):
-    """(buffer, count, head) after appending ``dist`` unless the frame was
-    skipped; new tensors, computed on the device without a host wait."""
+    """Appends ``dist`` unless the frame was skipped, written into
+    ``dist_buffer``, ``dist_count`` and ``dist_head`` in place on the
+    device without a host wait (a captured step graph reads these very
+    tensors); returns them."""
     capacity = dist_buffer.shape[0]
     pushed = dist_buffer.index_put((dist_head.reshape(1),),
                                    dist.reshape(1).to(dist_buffer.dtype))
-    return (torch.where(skip, dist_buffer, pushed),
-            torch.where(skip, dist_count,
-                        torch.clamp(dist_count + 1, max=capacity)),
-            torch.where(skip, dist_head, (dist_head + 1) % capacity))
+    dist_buffer.copy_(torch.where(skip, dist_buffer, pushed))
+    dist_count.copy_(torch.where(skip, dist_count,
+                                 torch.clamp(dist_count + 1, max=capacity)))
+    dist_head.copy_(torch.where(skip, dist_head,
+                                (dist_head + 1) % capacity))
+    return dist_buffer, dist_count, dist_head
 
 
 # ------------------------------------------------------------------ mixup
@@ -441,6 +455,13 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
     replay merged; with a flow head the target's, then the replay's).
     With a flow head the eval results also hold ``object_motion_map``,
     the student's target motion pair (2, B, H, W, 3).
+
+    The step keeps its own CUDA graphs (``tasks/step_graph.py``): on a
+    CUDA device, in one process and with ``noise`` None, the first call
+    of a batch signature runs eagerly on a side stream, the second
+    captures the losses and their backward, and every later one replays
+    them; any other call runs eagerly. The returned tensors are the
+    caller's own either way.
 
     ``mixup_groups`` = ((strategy, count), ...) partitions the mixup
     samples; each group gets ONE pooled top-k CE with unit pixel weights,
@@ -868,6 +889,8 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
             min=1e-12)
         return total, losses, aux
 
+    graphs = StepGraphs()
+
     def adapt_step(state: AdaptState, batch, noise=None):
         with trace.span("step.forward"):
             student = state.student
@@ -893,16 +916,27 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
                     by_images.discard("target_replay")
             if spatial.active():
                 _check_row_split(batch, by_images)
+
+            graphed = graphs.engages(state, noise)
             if noise is None:
                 def noise(shape):
                     return torch.randn(shape, generator=state.generator,
                                        device=state.device)
-            state.optimizer.zero_grad(set_to_none=True)
 
-            total, losses, aux = loss_fn(state, batch, noise, reuse_feats,
-                                         reuse_depth, by_images)
+            def forward(batch):
+                return loss_fn(state, batch, noise, reuse_feats, reuse_depth,
+                               by_images)
+
+            if graphed:
+                # the backward too: the gradients are in place on return
+                total, losses, aux = graphs.run(state, batch, forward)
+            else:
+                count_step(eager=1)
+                state.optimizer.zero_grad(set_to_none=True)
+                total, losses, aux = forward(batch)
         with trace.span("step.backward"):
-            total.backward()
+            if not graphed:
+                total.backward()
             if spatial.active():
                 # each rank's loss is its rows' or images' share: the sum
                 # is the gradient
@@ -930,9 +964,8 @@ def make_adapt_step(cfg, class_weights, has_replay: bool = True,
         with trace.span("step.update"):
             if student.depth_head is not None:
                 skip = aux["target_skipped"]
-                state.dist_buffer, state.dist_count, state.dist_head = \
-                    push_ring_buffer(state.dist_buffer, state.dist_count,
-                                     state.dist_head, aux["dist"], skip)
+                push_ring_buffer(state.dist_buffer, state.dist_count,
+                                 state.dist_head, aux["dist"], skip)
             else:
                 skip = torch.zeros((), dtype=torch.bool, device=state.device)
 

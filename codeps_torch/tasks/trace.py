@@ -13,6 +13,9 @@ calling thread. While it is open:
 - ``upload`` counts each copy of host memory to another device in the
   frame's ``h2d_bytes``, ``h2d_pageable_bytes`` (the source not pinned)
   and ``h2d_copies``.
+- ``count(name, value)`` adds to the frame's counter ``name`` (the
+  adaptation step's ``step.eager_steps``, ``step.graph_captures`` and
+  ``step.graph_replays``, ``tasks/step_graph.py``).
 
 On a normal exit the frame appends one entry to the lists of
 ``phases`` and ``counters`` under each name it saw. A span or upload
@@ -149,6 +152,14 @@ def frame(index: int, phases: Dict[str, List[float]],
                           (counters, opened.counters)):
         for name, value in values.items():
             lists.setdefault(name, []).append(value)
+
+
+def count(name: str, value: int = 1) -> None:
+    """Adds ``value`` to the open frame's counter ``name``; nothing with
+    no frame open on this thread."""
+    opened = _open()
+    if opened is not None:
+        _add(opened.counters, name, value)
 
 
 def upload(tensor: torch.Tensor, device, dtype=None) -> torch.Tensor:

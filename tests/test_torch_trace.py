@@ -164,8 +164,9 @@ def test_spans_nest_inside_their_frame(stream):
 def test_one_entry_per_adapted_frame(stream):
     runner = stream[0]
     assert set(SPANS) <= set(runner.frame_phases)
-    assert set(runner.frame_counters) == {"h2d_bytes", "h2d_pageable_bytes",
-                                          "h2d_copies"}
+    assert set(runner.frame_counters) == {
+        "h2d_bytes", "h2d_pageable_bytes", "h2d_copies", "step.eager_steps",
+        "step.graph_captures", "step.graph_replays"}
     for lists in (runner.frame_phases, runner.frame_counters):
         for name, entries in lists.items():
             assert len(entries) == worker.RUNNER_FRAMES, name
@@ -295,7 +296,9 @@ def test_profiler_started_inside_a_span():
 
 def test_operator_log_reads_phases_and_counters(monkeypatch):
     """``scripts/adapt.py`` logs each phase's mean ms and the uploads'
-    mean MB, copies and pageable share a frame, past the first 3."""
+    mean MB, copies and pageable share a frame, past the first 3, and
+    where the step counts them the stream's eager steps, graph captures
+    and replays."""
     from types import SimpleNamespace
 
     from codeps_torch.scripts import adapt as adapt_cli
@@ -320,3 +323,11 @@ def test_operator_log_reads_phases_and_counters(monkeypatch):
     assert "batch 3.0" in lines[1]
     assert lines[2] == ("Host to device a frame: 2.00 MB in 3.0 copies, "
                         "75.0% from pageable memory")
+    assert len(lines) == 4
+    runner.frame_counters.update({"step.eager_steps": [1, 0, 0, 0, 0],
+                                  "step.graph_captures": [0, 1, 0, 0, 0],
+                                  "step.graph_replays": [0, 1, 1, 1, 1]})
+    lines.clear()
+    adapt_cli._log_stream(cfg, runner, meters, sink)
+    assert lines[3] == ("Adaptation steps: 1 eager, 1 graph capture(s), "
+                        "4 graph replay(s)")
